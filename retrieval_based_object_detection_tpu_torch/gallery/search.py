@@ -1,0 +1,125 @@
+"""Device-side cosine top-k search over the padded gallery.
+
+The gallery is a padded tensor resident on the device, and a query batch is
+answered by one matmul plus a masked top-k. Payload filters arrive as
+boolean row masks.
+
+Tiers:
+  * ``masked_cosine_topk(exact=True)`` — f32 (the caller keeps TF32 off).
+  * ``masked_cosine_topk(exact=False)`` — bf16 rows and queries, f32
+    scores.
+  * ``int8_scan_topk`` — the int8 scan (kernel B2 on CUDA) → top
+    ``rescore`` candidates → exact f32 rescore. ``int8_cosine_topk`` is its
+    exact twin over a plain integer matmul.
+
+``torch.topk`` takes the place of JAX's ``approx_max_k`` and ``lax.top_k``.
+It promises no order among equal scores, so callers compare top-k by scores
+or id sets.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from retrieval_based_object_detection_tpu_torch.ops.int8_scan import (
+    int8_scan_scores,
+    int8_scan_scores_plain,
+)
+
+NEG_INF = -1e30
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Row-wise L2 normalisation in float32."""
+    x = x.to(torch.float32)
+    norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    return x / torch.clamp(norm, min=eps)
+
+
+def masked_cosine_topk(
+    queries: torch.Tensor,  # [Q, D] unnormalised
+    gallery: torch.Tensor,  # [N, D] padded
+    mask: torch.Tensor,     # [N] bool — valid AND filter-matching rows
+    k: int,
+    exact: bool = True,
+    gallery_normalized: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scores [Q, k], row indices [Q, k]) of the best cosine matches.
+
+    Rows where ``mask`` is False score NEG_INF and enter the top-k only
+    when fewer than k rows match (callers check scores > NEG_INF/2)."""
+    q = l2_normalize(queries)
+    g = gallery if gallery_normalized else l2_normalize(gallery)
+    if exact:
+        scores = q @ g.to(torch.float32).T
+    else:
+        # bf16 operands, f32 scores: a bf16 product is exact in f32, so
+        # this is the f32-accumulated bf16 dot of the JAX tier.
+        scores = (q.to(torch.bfloat16).to(torch.float32)
+                  @ g.to(torch.bfloat16).to(torch.float32).T)
+    scores = torch.where(mask[None, :], scores, NEG_INF)
+    return torch.topk(scores, k, dim=1)
+
+
+def pad_rows(n: int, multiple: int = 256) -> int:
+    """Round a row count up to a multiple (room for appends in place)."""
+    return max(multiple, -(-n // multiple) * multiple)
+
+
+def quantize_rows_int8(normalized_rows: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 quantisation of L2-normalised rows (scale 1/127).
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    return torch.clamp(torch.round(normalized_rows * 127.0), -127, 127
+                       ).to(torch.int8)
+
+
+def _rescore(qn, gallery_f32, cand_s, cand_i, k, live):
+    rows = gallery_f32[cand_i]  # [Q, r, D]
+    exact = torch.einsum("qd,qrd->qr", qn.to(rows.dtype), rows)
+    exact = torch.where(live, exact, NEG_INF)
+    best_s, pos = torch.topk(exact, k, dim=1)
+    return best_s, torch.gather(cand_i, 1, pos)
+
+
+def int8_scan_topk(
+    queries: torch.Tensor,      # [Q, D] unnormalised f32
+    gallery_i8: torch.Tensor,   # [N, D] int8 of normalised rows
+    gallery_f32: torch.Tensor,  # [N, D] normalised f32 (for exact rescoring)
+    mask: torch.Tensor,         # [N] bool
+    k: int,
+    rescore: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Million-row serving scan: int8 scores (kernel B2, in-kernel filter
+    penalty) → top-``rescore`` candidates → exact f32 rescore."""
+    N = gallery_f32.shape[0]
+    qn = l2_normalize(queries)
+    q_i8 = quantize_rows_int8(qn)
+    penalty = torch.where(mask, 0.0, NEG_INF).to(torch.float32)
+    scores = int8_scan_scores(q_i8, gallery_i8, penalty)
+    cand_s, cand_i = torch.topk(scores, min(rescore, N), dim=1)
+    return _rescore(qn, gallery_f32, cand_s, cand_i, k,
+                    cand_s > NEG_INF / 2)
+
+
+def int8_cosine_topk(
+    queries: torch.Tensor,      # [Q, D] unnormalised f32
+    gallery_i8: torch.Tensor,   # [N, D] int8 of normalised rows
+    gallery_f32: torch.Tensor,  # [N, D] normalised f32 (for rescoring)
+    mask: torch.Tensor,         # [N] bool
+    k: int,
+    rescore: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact twin of ``int8_scan_topk``: the same integer scores from a
+    plain integer matmul, masked with an int32 sentinel, → top-``rescore``
+    candidates → exact f32 rescore."""
+    qn = l2_normalize(queries)
+    q_i8 = quantize_rows_int8(qn)
+    no_penalty = torch.zeros(gallery_i8.shape[0], dtype=torch.float32,
+                             device=gallery_i8.device)
+    sentinel = -(2 ** 31) + 1
+    scores = int8_scan_scores_plain(q_i8, gallery_i8, no_penalty
+                                    ).to(torch.int64)
+    scores = torch.where(mask[None, :], scores, sentinel)
+    cand_s, cand_i = torch.topk(scores, min(rescore, gallery_i8.shape[0]),
+                                dim=1)
+    return _rescore(qn, gallery_f32, cand_s, cand_i, k, cand_s > sentinel)

@@ -1,0 +1,153 @@
+"""Weight-free salient-object box proposer, batched PyTorch.
+
+The JAX package's proposer with the same steps and constants:
+
+  1. background seeds: per-side border medians + the global border median,
+     each also shadow-scaled (x0.7); min colour distance to any seed is the
+     foreground score.
+  2. smooth (average pool), threshold at a fraction between the border
+     floor (20th percentile) and the peak.
+  3. K flood fills from the strongest unclaimed peaks (iterated masked
+     dilation, a fixed number of steps).
+  4. box = blob bounds; confidence = the blob's share of the total
+     above-threshold saliency mass.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _box_filter_same(x: torch.Tensor, win: int, op: str) -> torch.Tensor:
+    """[B, H, W] windowed sum (zero padding) or max over ``win``×``win``
+    with stride 1 and XLA's "SAME" padding (low side gets the smaller
+    half for even windows)."""
+    lo = (win - 1) // 2
+    hi = win - 1 - lo
+    pad_value = 0.0 if op == "sum" else float("-inf")
+    xp = F.pad(x[:, None], (lo, hi, lo, hi), value=pad_value)
+    if op == "sum":
+        return F.avg_pool2d(xp, win, stride=1)[:, 0] * (win * win)
+    return F.max_pool2d(xp, win, stride=1)[:, 0]
+
+
+def saliency_map(images: torch.Tensor, border: int = 8, pool: int = 9
+                 ) -> torch.Tensor:
+    """[B, H, W, 3] float 0..255 → [B, H, W] smoothed foreground score."""
+    x = images.to(torch.float32)
+    B = x.shape[0]
+    top = x[:, :border, :, :].reshape(B, -1, 3)
+    bot = x[:, -border:, :, :].reshape(B, -1, 3)
+    left = x[:, :, :border, :].reshape(B, -1, 3)
+    right = x[:, :, -border:, :].reshape(B, -1, 3)
+    ring = torch.cat([top, bot, left, right], dim=1)
+    # jnp.median averages the two middle values: the 0.5 quantile, not
+    # torch.median's lower middle.
+    seeds = torch.stack([torch.quantile(s, 0.5, dim=1)
+                         for s in (top, bot, left, right, ring)], dim=1)
+    # Shadowed background is approximately scaled background.
+    seeds = torch.cat([seeds, 0.7 * seeds], dim=1)  # [B, S, 3]
+    score = torch.full(x.shape[:3], float("inf"), device=x.device)
+    for s in range(seeds.shape[1]):
+        d = torch.linalg.vector_norm(x - seeds[:, s][:, None, None, :],
+                                     dim=-1)
+        score = torch.minimum(score, d)
+    return _box_filter_same(score, pool, "sum") / (pool * pool)
+
+
+def box_from_saliency(
+    score: torch.Tensor,  # [B, H, W] (already at working resolution)
+    rel_threshold: float = 0.35,
+    min_blob_cells: int = 16,
+    max_boxes: int = 2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """→ (boxes [B, K, 4] xyxy in MAP pixels, conf [B, K], K=max_boxes,
+    ordered by descending blob mass). Blobs under ``min_blob_cells``
+    cells get conf 0 and a zero box."""
+    B, H, W = score.shape
+    flat_score = score.reshape(B, -1)
+    floor = torch.quantile(flat_score, 0.2, dim=1)
+    peak = flat_score.max(dim=1).values
+    thresh = floor + rel_threshold * (peak - floor)
+    fg = score > thresh[:, None, None]
+    rel = torch.clamp(score - thresh[:, None, None], min=0.0)
+
+    ys = torch.arange(H, dtype=torch.float32, device=score.device
+                      )[None, :, None].expand(B, H, W)
+    xs = torch.arange(W, dtype=torch.float32, device=score.device
+                      )[None, None, :].expand(B, H, W)
+
+    win = 9  # grows 4 px/iter; also bridges sub-smoothing-scale gaps
+    # Enough iterations to cross the full frame from any peak position.
+    iters = max(H, W) // 4 + 2
+
+    claimed = torch.zeros_like(fg)
+    blobs, masses = [], []
+    for _ in range(max_boxes):
+        avail = fg & ~claimed
+        flat = torch.argmax((rel * avail).reshape(B, -1), dim=1)
+        py = (flat // W).to(torch.float32)
+        px = (flat % W).to(torch.float32)
+        blob = (ys == py[:, None, None]) & (xs == px[:, None, None]) & avail
+        for _ in range(iters):
+            grown = _box_filter_same(blob.to(torch.float32), win, "max")
+            blob = (grown > 0) & avail
+        blobs.append(blob)
+        masses.append(torch.sum(rel * blob, dim=(1, 2)))
+        claimed = claimed | blob
+
+    big = 1e9
+    mass_total = torch.sum(rel, dim=(1, 2))
+    boxes, confs = [], []
+    for m, mass in zip(blobs, masses):
+        empty = m.reshape(B, -1).sum(dim=1) < min_blob_cells
+        x1 = torch.where(m, xs, big).amin(dim=(1, 2))
+        y1 = torch.where(m, ys, big).amin(dim=(1, 2))
+        x2 = torch.where(m, xs, -big).amax(dim=(1, 2)) + 1.0
+        y2 = torch.where(m, ys, -big).amax(dim=(1, 2)) + 1.0
+        box = torch.stack([x1, y1, x2, y2], dim=1)
+        boxes.append(torch.where(empty[:, None], 0.0, box))
+        confs.append(torch.where(
+            empty, 0.0, mass / torch.clamp(mass_total, min=1e-6)))
+    boxes = torch.stack(boxes, dim=1)                  # [B, K, 4]
+    conf = torch.stack(confs, dim=1)                   # [B, K]
+    # Mass-descending order; stable, so equal masses keep fill order.
+    order = torch.argsort(-torch.stack(masses, dim=1), dim=1, stable=True)
+    boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    conf = torch.gather(conf, 1, order)
+    return boxes, conf
+
+
+def propose_boxes(
+    images: torch.Tensor,  # [B, H, W, 3] float 0..255
+    border: int = 8,
+    pool: int = 9,
+    rel_threshold: float = 0.35,
+    max_boxes: int = 2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """→ (boxes [B, K, 4] xyxy in ORIGINAL pixels, conf [B, K], best blob
+    first, K=max_boxes).
+
+    The saliency computation runs at a coarse working resolution (~160 px
+    max side): the image is stride-``ds`` average-pooled first, and boxes
+    are rescaled to input pixels (generous by up to ds−1 px, which the
+    crop stage's 20% margin absorbs)."""
+    x = images.to(torch.float32)
+    B, H, W, _ = x.shape
+    ds = max(1, max(H, W) // 160)
+    if ds > 1:
+        x = F.avg_pool2d(x.permute(0, 3, 1, 2), ds, stride=ds
+                         ).permute(0, 2, 3, 1)
+    # Border and smoothing scale with the grid so the effective extent in
+    # original pixels stays about constant.
+    score = saliency_map(x, border=max(2, border // ds),
+                         pool=pool if ds == 1 else max(3, pool // ds))
+    boxes, conf = box_from_saliency(
+        score, rel_threshold=rel_threshold,
+        min_blob_cells=max(1, 16 // (ds * ds)), max_boxes=max_boxes)
+    if ds > 1:
+        limit = torch.tensor([W, H, W, H], dtype=torch.float32,
+                             device=boxes.device)
+        boxes = torch.minimum(torch.clamp(boxes * ds, min=0.0), limit)
+    return boxes, conf

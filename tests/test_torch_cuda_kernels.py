@@ -1,0 +1,88 @@
+"""The PyTorch port's CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA GPU and nvcc; without a GPU they skip. They
+import neither JAX nor the JAX package, so on a machine that has only the
+port's dependencies they run without the JAX test harness:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+"""
+
+import pytest
+import torch
+
+from retrieval_based_object_detection_tpu_torch.ops import clip_attention as CA
+from retrieval_based_object_detection_tpu_torch.ops import int8_scan as S
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    # Decided here, not at import, so every test worker collects the same
+    # tests.
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+# bf16: the kernel and the plain version form the same f32 sums in another
+# order, so p (≤ 1) and the output may round to neighbouring bf16 values:
+# one ulp of p (2⁻⁹ near 0.5) times |v| ≲ 4, plus one ulp of the output.
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-5),
+                                             (torch.bfloat16, 1e-2, 2 ** -7)])
+@pytest.mark.parametrize("B,T,heads,D", [(8, 50, 12, 64), (3, 17, 4, 32),
+                                         (2, 77, 8, 64)])
+def test_attention_kernel_matches_plain(cuda_device, dtype, atol, rtol,
+                                        B, T, heads, D):
+    g = torch.Generator(device="cpu").manual_seed(B * T)
+    qkv = torch.randn(B, T, 3 * heads * D, generator=g).to(cuda_device, dtype)
+    before = CA.KERNEL.launches
+    got = CA.clip_attention_core(qkv, heads=heads)
+    torch.cuda.synchronize()
+    assert CA.KERNEL.launches == before + 1
+    want = CA.clip_attention_core_plain(qkv, heads=heads)
+    assert got.dtype == dtype and got.shape == (B, T, heads * D)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
+    qkv = torch.zeros(2, 50, 3 * 64, device=cuda_device)
+    with pytest.raises(TypeError):
+        CA.clip_attention_core(qkv.half(), heads=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        CA.clip_attention_core(qkv.transpose(0, 1), heads=1)
+    with pytest.raises(ValueError, match="shared memory"):
+        CA.clip_attention_core(torch.zeros(1, 400, 3 * 64,
+                                           device=cuda_device), heads=1)
+
+
+@pytest.mark.parametrize("Q,N,D", [(16, 100_003, 512), (1, 129, 512),
+                                   (40, 4096, 512), (3, 1000, 1040),
+                                   (5, 77, 16)])
+def test_scan_kernel_bit_exact_vs_plain(cuda_device, Q, N, D):
+    g = torch.Generator(device="cpu").manual_seed(N)
+    q = torch.randint(-127, 128, (Q, D), generator=g, dtype=torch.int8)
+    rows = torch.randint(-127, 128, (N, D), generator=g, dtype=torch.int8)
+    pen = torch.where(torch.rand(N, generator=g) < 0.1, -1e30, 0.0)
+    q, rows, pen = q.to(cuda_device), rows.to(cuda_device), pen.to(cuda_device)
+    before = S.KERNEL.launches
+    got = S.int8_scan_scores(q, rows, pen)
+    torch.cuda.synchronize()
+    assert S.KERNEL.launches == before + 1
+    torch.testing.assert_close(got, S.int8_scan_scores_plain(q, rows, pen),
+                               atol=0, rtol=0)
+    # The exact integer scores on the CPU agree too.
+    cpu = S.int8_scan_scores(q.cpu(), rows.cpu(), pen.cpu())
+    torch.testing.assert_close(got.cpu(), cpu, atol=0, rtol=0)
+
+
+def test_scan_kernel_rejects_what_it_does_not_take(cuda_device):
+    q = torch.zeros(2, 24, dtype=torch.int8, device=cuda_device)
+    rows = torch.zeros(8, 24, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        S.int8_scan_scores(q, rows, torch.zeros(8, device=cuda_device))
+    rows = torch.zeros(8, 32, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(TypeError):
+        S.int8_scan_scores(q[:, :16].contiguous().float(), rows[:, :16],
+                           torch.zeros(8, device=cuda_device))
