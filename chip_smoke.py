@@ -1,17 +1,26 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch port: its serving path on one NVIDIA GPU.
+"""Chip smoke test of the PyTorch port: its serving and offline paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
 Builds the port's CUDA kernels from ``csrc/`` (one nvcc per source, all
-started together), holds each against its plain PyTorch version at the
-serving path's shapes, then drives the serving path through the calls a
-user makes: a full-width CLIP ViT-B/32 from seeded weights embeds a few
-hundred synthetic crops into a Gallery, ``build_delegates`` runs, and
-``serve_http`` answers concurrent ``POST /detect`` requests; a 1,048,576 x
-512 gallery then answers ``Gallery.search(exact=False)`` through the int8
-scan. Kernel launch counters are zeroed just before that path and read
-just after it.
+started together) and holds each against its plain PyTorch version at the
+shapes its path gives it. Then it drives two paths through the calls a
+user makes, with a full-width CLIP ViT-B/32 from seeded weights:
+
+- serving: a few hundred synthetic crops are embedded into a Gallery,
+  ``build_delegates`` runs, ``serve_http`` answers concurrent
+  ``POST /detect`` requests, and a 1,048,576 x 512 gallery answers
+  ``Gallery.search(exact=False)`` through the int8 scan;
+- offline: ``embed_tree`` over a synthetic dataset tree, 12,000 crops of
+  one class through ``embed_arrays`` (a group past the blocked-medoid
+  threshold), ``build_delegates``, ``run_experiments`` in both match
+  modes writing CSV/npy, and ``search(method="int4")`` on the 1M-row
+  gallery.
+
+Kernel launch counters are zeroed just before each path and read just
+after it.
 
 Prints one JSON line per phase, then the kernel table as one JSON line,
 the card's name and power limit, and last
@@ -40,6 +49,11 @@ ATTN_SOURCE = "retrieval_based_object_detection_tpu_torch/csrc/clip_attention.cu
 ATTN_REPLACES = "retrieval_based_object_detection_tpu/ops/clip_attention.py:30"
 SCAN_SOURCE = "retrieval_based_object_detection_tpu_torch/csrc/int8_scan.cu"
 SCAN_REPLACES = "retrieval_based_object_detection_tpu/ops/int8_scan.py:59"
+INT4_SOURCE = "retrieval_based_object_detection_tpu_torch/csrc/int4_scan.cu"
+INT4_REPLACES = "retrieval_based_object_detection_tpu/ops/int4_scan.py:80"
+MEDOID_SOURCE = "retrieval_based_object_detection_tpu_torch/csrc/medoid.cu"
+MEDOID_REPLACES = "retrieval_based_object_detection_tpu/ops/medoid.py:23"
+MEDOID_RTOL, MEDOID_ATOL = 1e-4, 5e-2  # tests/test_pallas_medoid.py
 
 COLORS = [(220, 40, 40), (40, 40, 220), (40, 190, 60), (230, 200, 30),
           (150, 60, 200), (30, 200, 200), (240, 120, 20), (90, 90, 90)]
@@ -141,6 +155,85 @@ def scan_phase(torch, S, seed: int) -> dict:
         "bound_ms": b_ms, "bound_by": b_by,
     }
     log("scan_kernel_vs_plain", shape=[Q, N, D], **out)
+    return out
+
+
+def int4_phase(torch, S4, seed: int) -> dict:
+    """B3 against its plain version at Q=16 x N=1,048,576 x 512, bit-exact,
+    with the query halves drawn apart so a lo/hi swap would show."""
+    Q, N, D = 16, 1 << 20, 512
+    g = torch.Generator(device="cpu").manual_seed(seed + 4)
+    q = torch.randint(-127, 128, (Q, D), generator=g, dtype=torch.int8)
+    q[:, D // 2:] //= 3
+    packed = torch.randint(-128, 128, (N, D // 2), generator=g,
+                           dtype=torch.int8)
+    scales = torch.rand(N, generator=g) * 0.2 + 1e-3
+    pen = torch.where(torch.rand(N, generator=g) < 0.1, -1e30, 0.0)
+    q, packed, scales, pen = (t.cuda() for t in (q, packed, scales, pen))
+    got = S4.int4_scan_scores(q, packed, scales, pen)
+    torch.cuda.synchronize()
+    want = S4.int4_scan_scores_plain(q, packed, scales, pen)
+    if not torch.equal(got, want):
+        raise AssertionError(
+            "int4 scan differs from its plain version: max abs err "
+            f"{float((got - want).abs().max())}")
+    del got, want
+    rows_bf16 = S4.unpack_int4(packed).to(torch.bfloat16)
+    q_bf16 = q.to(torch.bfloat16)
+    n_bytes = Q * D + N * D // 2 + 8 * N + 4 * Q * N
+    b_ms, b_by = bound_ms(n_bytes, 2 * Q * N * D, "int8")
+    out = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: S4.int4_scan_scores(q, packed, scales,
+                                                         pen)),
+        "plain_ms": cuda_ms(
+            torch, lambda: S4.int4_scan_scores_plain(q, packed, scales, pen),
+            reps=3, warmup=1),
+        "library_ms": cuda_ms(torch, lambda: q_bf16 @ rows_bf16.T),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    log("int4_kernel_vs_plain", shape=[Q, N, D], **out)
+    return out
+
+
+def medoid_agrees(i: int, plain) -> bool:
+    """Row ``i`` is the plain sums' medoid, or has a plain sum within the
+    medoid tolerance of the plain minimum."""
+    lo = float(plain.min())
+    return i == int(plain.argmin()) or \
+        float(plain[i]) - lo <= MEDOID_ATOL + MEDOID_RTOL * lo
+
+
+def medoid_phase(torch, M, seed: int) -> dict:
+    """B4 against its plain version at N=12,000 (not a tile multiple) x
+    512 seeded unit rows."""
+    N, D = 12_000, 512
+    g = torch.Generator(device="cpu").manual_seed(seed + 5)
+    x = torch.nn.functional.normalize(torch.randn(N, D, generator=g),
+                                      dim=1).cuda()
+    got = M.pairwise_distance_sums(x)
+    torch.cuda.synchronize()
+    want = M.pairwise_distance_sums_plain(x)
+    torch.testing.assert_close(got, want, rtol=MEDOID_RTOL,
+                               atol=MEDOID_ATOL)
+    if not medoid_agrees(int(got.argmin()), want):
+        raise AssertionError("medoid kernel's argmin is not the plain one")
+    if not torch.equal(M.pairwise_distance_sums(x), got):
+        raise AssertionError("medoid kernel sums differ between runs")
+    b_ms, b_by = bound_ms(4 * N * D + 4 * N, 2 * N * N * D, "float32")
+    out = {
+        "max_abs_err": float((got - want).abs().max()),
+        "rtol": MEDOID_RTOL, "atol": MEDOID_ATOL,
+        "argmin_kernel": int(got.argmin()), "argmin_plain": int(want.argmin()),
+        "ms": cuda_ms(torch, lambda: M.pairwise_distance_sums(x), reps=5,
+                      warmup=1),
+        "plain_ms": cuda_ms(torch, lambda: M.pairwise_distance_sums_plain(x),
+                            reps=5, warmup=1),
+        "library_ms": cuda_ms(torch, lambda: torch.cdist(x, x).sum(1),
+                              reps=5, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    log("medoid_kernel_vs_plain", shape=[N, D], **out)
     return out
 
 
@@ -279,7 +372,7 @@ def serving_phase(torch, np, port, seed: int) -> dict:
            "top1_class_matches_scene_colour": f"{correct}/{len(truth)}",
            "seconds": time.perf_counter() - t0}
     log("serving_path", **out)
-    return out, detector
+    return out, detector, params
 
 
 def breakdown_phase(torch, np, port, detector, seed: int) -> dict:
@@ -365,6 +458,262 @@ def gallery_phase(torch, np, port, seed: int) -> dict:
                                 for p, a in zip(picks, approx)),
            "seconds": time.perf_counter() - t0}
     log("gallery_int8_search", **out)
+    return out, gallery, queries, picks
+
+
+def write_tree(np, root, seed: int, per_class=(32, 8)) -> int:
+    """A synthetic dataset tree: dataset_cropped (RGB) and
+    dataset_segmented (RGBA, as segmented crops are) PNGs of 8 colour
+    classes, ``per_class`` original and natural images each, in sizes that
+    make the PIL path resize and crop. Encoded on 8 threads."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for stage in ("dataset_cropped", "dataset_segmented"):
+        for img_type, count in zip(("original", "natural"), per_class):
+            for c, color in enumerate(COLORS):
+                d = root / stage / f"{img_type}_images" / f"class{c}"
+                d.mkdir(parents=True)
+                for i in range(count):
+                    h, w = rng.integers(200, 300, 2)
+                    jobs.append((scene(np, rng, color, h, w),
+                                 stage == "dataset_segmented",
+                                 d / f"img_{i}.png"))
+
+    def save(job):
+        arr, alpha, path = job
+        img = Image.fromarray(arr)
+        if alpha:
+            img.putalpha(255)
+        img.save(path, compress_level=1)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        list(ex.map(save, jobs))
+    return len(jobs)
+
+
+def large_class_chunks(torch, np, rng, mean, std, n: int, chunk: int = 1024):
+    """``n`` preprocessed crops of one class, ``chunk`` at a time (about
+    0.6 GB of f32 at 224 px): colour and shift jitter of a few base crops,
+    the kind of set the augment stage's n_aug 10 makes of product photos.
+    The jitter runs on the card; the crops come back as host arrays, as a
+    loader would hand them to ``embed_arrays``."""
+    pad, size = 12, 224
+    bases = torch.from_numpy(np.stack([
+        synthetic_crop(np, rng, COLORS[0], size + 2 * pad)
+        for _ in range(8)])).cuda()
+    mean, std = torch.from_numpy(mean).cuda(), torch.from_numpy(std).cuda()
+    g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 31)))
+    ramp = torch.arange(size).cuda()
+    for lo in range(0, n, chunk):
+        m = min(chunk, n - lo)
+        pick = torch.randint(0, len(bases), (m, 1, 1), generator=g).cuda()
+        dy, dx = torch.randint(0, 2 * pad + 1, (2, m, 1), generator=g).cuda()
+        tint = torch.randint(-25, 26, (m, 1, 1, 3), generator=g).cuda()
+        px = bases[pick, (dy + ramp)[:, :, None], (dx + ramp)[:, None, :]]
+        px = torch.clamp(px.float() + tint, 0, 255)
+        yield lo, ((px / 255.0 - mean) / std).cpu().numpy()
+
+
+def experiment_phase(torch, np, port, params, seed: int) -> dict:
+    """The offline path at full ViT-B/32 width (f32 tower): embed_tree over
+    a synthetic tree, a 12,000-member class through embed_arrays,
+    build_delegates (that class's medoid through B4), run_experiments in
+    both match modes writing CSV/npy."""
+    import csv
+    import tempfile
+    from pathlib import Path
+
+    cfg = port["clip_model"].VIT_B_32
+    embed, xp = port["embed"], port["experiments"]
+    M = port["medoid"]
+    t0 = time.perf_counter()
+    encoder = embed.make_encoder(params, cfg, device="cuda")
+    gallery = port["store"].Gallery("offline", dim=cfg.embed_dim,
+                                    device="cuda")
+    out = {"tower": "float32", "batch": 64}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        out["tree_images"] = write_tree(np, root, seed + 6)
+        out["tree_write_s"] = time.perf_counter() - t
+        batches, n_tree = 0, 0
+        t = time.perf_counter()
+        for stage in ("dataset_cropped", "dataset_segmented"):
+            for img_type in ("original", "natural"):
+                res = embed.embed_tree(gallery, encoder, embed.EmbedConfig(
+                    root_dir=str(root / stage), img_type=img_type,
+                    batch_size=64))
+                if res.n_failed:
+                    raise AssertionError(f"embed_tree failed {res.n_failed}")
+                batches += math.ceil(res.total / 64)
+                n_tree += res.total
+        out["embed_tree_s"] = time.perf_counter() - t
+        out["embed_tree_crops_per_s"] = n_tree / out["embed_tree_s"]
+        if n_tree != out["tree_images"]:
+            raise AssertionError(f"embedded {n_tree} of "
+                                 f"{out['tree_images']} images")
+        # Where embed_tree's time goes: the host decode + PIL preprocess of
+        # every tree image alone, and one 64-crop f32 encode (host-to-device
+        # copy, tower, device-to-host copy) alone.
+        entries = [e for stage in ("dataset_cropped", "dataset_segmented")
+                   for img_type in ("original", "natural")
+                   for e in port["tree"].walk(root / stage, img_type)]
+        t = time.perf_counter()
+        arrs = port["loader"].parallel_map(
+            lambda e: port["preprocess"].load_and_preprocess(e.path),
+            entries)
+        out["tree_decode_preprocess_s"] = time.perf_counter() - t
+        batch = np.stack(arrs[:64])
+        del arrs
+        out["encode_64_f32_ms"] = cuda_ms(torch, lambda: encoder(batch),
+                                          reps=5, warmup=1)
+        timing_encodes = 6  # the warm-up and 5 timed calls, B1 12 times each
+
+        n_large = 12_000
+        rng = np.random.default_rng(seed + 7)
+        mean = port["preprocess"].CLIP_MEAN
+        std = port["preprocess"].CLIP_STD
+        t = time.perf_counter()
+        make_s = 0.0
+        chunks = large_class_chunks(torch, np, rng, mean, std, n_large)
+        while True:
+            tm = time.perf_counter()
+            item = next(chunks, None)
+            make_s += time.perf_counter() - tm
+            if item is None:
+                break
+            lo, crops = item
+            paths = [f"/augmented/class0/{i}.png"
+                     for i in range(lo, lo + len(crops))]
+            embed.embed_arrays(gallery, encoder, crops, paths,
+                               ["class0"] * len(crops), is_augmented=True,
+                               batch_size=64)
+            batches += math.ceil(len(crops) / 64)
+        out["large_class_s"] = time.perf_counter() - t
+        out["large_class_make_crops_s"] = make_s
+        out["large_class_embed_arrays_crops_per_s"] = \
+            n_large / (out["large_class_s"] - make_s)
+        if len(gallery) != n_tree + n_large:
+            raise AssertionError(f"{len(gallery)} points")
+
+        t = time.perf_counter()
+        built = port["delegates"].build_delegates(gallery)
+        out["delegates_s"] = time.perf_counter() - t
+        large = [k for k, v in built.member_counts.items()
+                 if v > port["delegates"].LARGE_CLASS_THRESHOLD]
+        groups = sum(v > 0 for v in built.member_counts.values())
+        if large != [("class0", "pre_c", "original_images")] or \
+                built.n_delegates_written != 4 * groups:
+            raise AssertionError(f"delegates: {built}")
+
+        # The large class's medoid against the plain sums on the card.
+        Filter = port["schema"].Filter
+        members = gallery.vectors_matching(
+            Filter(must={"class_name": "class0", "is_delegate": False,
+                         "data_type": "original_images"})
+            & Filter.for_case("pre_c"))
+        medoid = gallery.scroll_all(Filter(must={
+            "class_name": "class0", "delegate_type": "medoid",
+            "is_augmented": True}), with_vectors=True)[0].vector
+        row = int(np.flatnonzero((members == medoid).all(axis=1))[0])
+        plain = M.pairwise_distance_sums_plain(torch.from_numpy(members)
+                                               .cuda())
+        if not medoid_agrees(row, plain):
+            raise AssertionError("large-class medoid is not the plain one")
+        out["large_class_medoid_row"] = row
+        out["large_class_plain_argmin"] = int(plain.argmin())
+
+        t = time.perf_counter()
+        runs = {}
+        for mode in ("same_class", "nearest"):
+            runs[mode] = xp.run_experiments(gallery, xp.ExperimentConfig(
+                root_dir=str(root / "dataset_segmented"),
+                results_dir=str(root / "results" / mode), match_mode=mode))
+        out["experiments_s"] = time.perf_counter() - t
+        n_test = 8 * len(COLORS)  # natural images of the test group
+        for mode, res in runs.items():
+            # pre_a and pre_b have natural delegates; pre_c has none.
+            if len(res.rows) != n_test * 2 * 4:
+                raise AssertionError(f"{mode}: {len(res.rows)} rows")
+            with open(res.csv_path) as f:
+                header = next(csv.reader(f))
+            if header != ["experiment_id", "case", "delegate_type",
+                          "image_path", "true_class", "predicted_class",
+                          "similarity_score"]:
+                raise AssertionError(f"csv header {header}")
+            names = sorted(p.name for p in (res.csv_path.parent /
+                                            "score_distribution").iterdir())
+            if names != sorted(f"{c}_{d}_scores.npy" for c in ("pre_a",
+                                                               "pre_b")
+                               for d in ("average", "centroid", "medoid",
+                                         "weighted")):
+                raise AssertionError(f"npy names {names}")
+            if not all(math.isfinite(r.similarity_score)
+                       and -1.0 <= r.similarity_score <= 1.0 + 1e-6
+                       for r in res.rows):
+                raise AssertionError(f"{mode}: bad scores")
+        if not all(r.predicted_class == r.true_class
+                   for r in runs["same_class"].rows):
+            raise AssertionError("same_class predicted != true")
+        nearest = runs["nearest"].rows
+        out["nearest_top1"] = (sum(r.predicted_class == r.true_class
+                                   for r in nearest) / len(nearest))
+        out["result_rows"] = len(runs["same_class"].rows)
+    out.update(points=len(gallery), encode_batches=batches,
+               timing_encodes=timing_encodes,
+               delegates=built.n_delegates_written, groups_over_threshold=
+               len(large), seconds=time.perf_counter() - t0)
+    log("experiment_path", **out)
+    return out
+
+
+def gallery_int4_phase(torch, np, port, gallery, queries, picks) -> dict:
+    """search(method="int4") on the 1M-row gallery of the int8 phase:
+    through B3, the same ids as the plain int4 path over the same mirrors,
+    and its top-10 overlap with exact search."""
+    S4 = port["int4_scan"]
+    search_lib = port["search"]
+    k = 10
+    before = S4.KERNEL.launches
+    t = time.perf_counter()
+    hits = gallery.search(queries, k=k, method="int4")
+    first_ms = (time.perf_counter() - t) * 1e3
+    if S4.KERNEL.launches == before or gallery._dev_int4 is None:
+        raise AssertionError("method='int4' did not launch the int4 scan")
+    packed, scales = gallery._dev_int4
+    flt = port["schema"].Filter(must={"class_name": "c3"})
+    fhits = gallery.search(queries, k=k, flt=flt, method="int4")
+    q = torch.from_numpy(queries).cuda()
+    rescore = min(max(8 * k, 256), gallery._padded)
+    for f, res in ((None, hits), (flt, fhits)):
+        _, idx = search_lib.int4_cosine_topk(
+            q, packed, scales, gallery._dev_f32, gallery._device_mask(f),
+            k=k, rescore=rescore)
+        for got, rows in zip(res, idx.cpu().numpy()):
+            if {h.id for h in got} != {gallery._ids[r] for r in rows}:
+                raise AssertionError("int4 ids differ from the plain path")
+    if any(h.payload.class_name != "c3" for res in fhits for h in res):
+        raise AssertionError("filtered int4 hits outside c3")
+    exact = gallery.search(queries, k=k, method="exact")
+    overlap = float(np.mean([len({h.id for h in a} & {h.id for h in e}) / k
+                             for a, e in zip(hits, exact)]))
+    steady = []
+    for _ in range(5):
+        t = time.perf_counter()
+        gallery.search(queries, k=k, method="int4")
+        steady.append((time.perf_counter() - t) * 1e3)
+    self_hits = sum(int(f"row-{p}" == a[0].id) for p, a in zip(picks, hits))
+    if self_hits != len(picks):
+        raise AssertionError(f"int4 self hits {self_hits}/{len(picks)}")
+    out = {"rows": len(gallery), "queries": len(queries), "k": k,
+           "rescore": rescore, "first_search_ms_host_clock": first_ms,
+           "search_ms_host_clock": sorted(steady),
+           "top10_overlap_with_exact": overlap,
+           "ids_equal_plain_int4": True,
+           "self_hit_top1": f"{self_hits}/{len(picks)}"}
+    log("gallery_int4_search", **out)
     return out
 
 
@@ -379,7 +728,7 @@ def main(argv=None) -> int:
         import torch.nn.functional as F
 
         from retrieval_based_object_detection_tpu_torch.gallery import (
-            schema, store,
+            schema, search, store,
         )
         from retrieval_based_object_detection_tpu_torch.models.clip import (
             model as clip_model, preprocess,
@@ -388,10 +737,14 @@ def main(argv=None) -> int:
             saliency,
         )
         from retrieval_based_object_detection_tpu_torch.ops import (
-            clip_attention as CA, cuda_lib, image, int8_scan as S,
+            clip_attention as CA, cuda_lib, image, int4_scan as S4,
+            int8_scan as S, medoid as M,
         )
         from retrieval_based_object_detection_tpu_torch.pipelines import (
-            delegates, embed, serve,
+            delegates, embed, experiments, serve,
+        )
+        from retrieval_based_object_detection_tpu_torch.utils import (
+            loader, tree,
         )
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e}); run "
@@ -404,7 +757,9 @@ def main(argv=None) -> int:
     port = {"schema": schema, "store": store, "clip_model": clip_model,
             "preprocess": preprocess, "int8_scan": S, "delegates": delegates,
             "embed": embed, "serve": serve, "saliency": saliency,
-            "image": image}
+            "image": image, "int4_scan": S4, "medoid": M,
+            "experiments": experiments, "search": search, "tree": tree,
+            "loader": loader}
 
     # Full f32 on the card: no TF32 in matmuls or convolutions.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -419,45 +774,81 @@ def main(argv=None) -> int:
         torch=torch.__version__, cuda=torch.version.cuda)
 
     t = time.perf_counter()
-    cuda_lib.build_all([CA.KERNEL, S.KERNEL])
+    libraries = [CA.KERNEL, S.KERNEL, S4.KERNEL, M.KERNEL]
+    cuda_lib.build_all(libraries)
     log("build", seconds=time.perf_counter() - t,
-        libraries=[CA.KERNEL.path.name, S.KERNEL.path.name])
+        libraries=[lib.path.name for lib in libraries])
 
     attn = attention_phase(torch, F, CA, args.seed)
     scan = scan_phase(torch, S, args.seed)
     torch.cuda.empty_cache()
+    int4 = int4_phase(torch, S4, args.seed)
+    torch.cuda.empty_cache()
+    med = medoid_phase(torch, M, args.seed)
+    torch.cuda.empty_cache()
+
+    def zero_counts():
+        for lib in libraries:
+            lib.launches = 0
+
+    def read_counts():
+        return {"attn": CA.KERNEL.launches, "scan": S.KERNEL.launches,
+                "int4": S4.KERNEL.launches, "medoid": M.KERNEL.launches}
 
     # The serving path: launch counts from here to its end only.
-    CA.KERNEL.launches = 0
-    S.KERNEL.launches = 0
-    serving, detector = serving_phase(torch, np, port, args.seed)
-    gallery_phase(torch, np, port, args.seed)
-    launches = {"attn": CA.KERNEL.launches, "scan": S.KERNEL.launches}
+    zero_counts()
+    serving, detector, params = serving_phase(torch, np, port, args.seed)
+    _, big, queries, picks = gallery_phase(torch, np, port, args.seed)
+    launches = read_counts()
     encodes = serving["embed_batches"] + serving["dispatches"]
     if launches["attn"] < 12 * encodes or launches["scan"] < 1:
         raise AssertionError(f"kernel launches {launches} for {encodes} "
                              "encodes and the int8 searches")
     breakdown_phase(torch, np, port, detector, args.seed)
+    del detector
+
+    # The offline path: launch counts from here to its end only.
+    zero_counts()
+    offline = experiment_phase(torch, np, port, params, args.seed)
+    gallery_int4_phase(torch, np, port, big, queries, picks)
+    offline_launches = read_counts()
+    encodes = offline["encode_batches"] + offline["timing_encodes"]
+    if offline_launches["attn"] != 12 * encodes or \
+            offline_launches["medoid"] != offline["groups_over_threshold"] \
+            or offline_launches["int4"] < 1:
+        raise AssertionError(
+            f"offline kernel launches {offline_launches} for {encodes} "
+            "encodes, "
+            f"{offline['groups_over_threshold']} large groups and the int4 "
+            "searches")
+    del big
+    by_path = {k: {"serving": launches[k], "offline": offline_launches[k]}
+               for k in launches}
+
+    def row(name, source, replaces, key, res, shape, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": launches[key] + offline_launches[key],
+                "launches_by_path": by_path[key],
+                "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+                "shape": shape, **extra}
 
     bf16 = attn["bfloat16"]
     f32 = attn["float32"]
     kernels = [
-        {"name": "clip_attention_fwd", "route": "cuda",
-         "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
-         "launches": launches["attn"], "max_abs_err": bf16["max_abs_err"],
-         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
-         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
-         "library_ms": bf16["library_ms"], "dtype": "bfloat16",
-         "shape": [64, 50, 2304],
-         "float32": {k: f32[k] for k in ("max_abs_err", "ms", "plain_ms",
+        row("clip_attention_fwd", ATTN_SOURCE, ATTN_REPLACES, "attn", bf16,
+            [64, 50, 2304], dtype="bfloat16",
+            float32={k: f32[k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
-                                         "library_ms")}},
-        {"name": "int8_scan", "route": "cuda",
-         "source": SCAN_SOURCE, "replaces": SCAN_REPLACES,
-         "launches": launches["scan"], "max_abs_err": scan["max_abs_err"],
-         "ms": scan["ms"], "plain_ms": scan["plain_ms"],
-         "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
-         "library_ms": scan["library_ms"], "shape": [16, 1 << 20, 512]},
+                                         "library_ms")}),
+        row("int8_scan", SCAN_SOURCE, SCAN_REPLACES, "scan", scan,
+            [16, 1 << 20, 512]),
+        row("int4_scan", INT4_SOURCE, INT4_REPLACES, "int4", int4,
+            [16, 1 << 20, 512]),
+        row("medoid_sums", MEDOID_SOURCE, MEDOID_REPLACES, "medoid", med,
+            [12_000, 512]),
     ]
     log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

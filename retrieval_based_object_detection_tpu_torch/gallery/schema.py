@@ -15,7 +15,8 @@ The 8-field payload contract is fixed by the reference
 Filters are evaluated host-side against columnar NumPy arrays, producing a
 boolean row mask that the device-side search consumes as an additive
 penalty. Host-only code, copied from the JAX package's ``gallery/schema.py``
-without the snapshot import/export, which comes with persistence.
+without the snapshot import/export and the lazy path blob, which come with
+persistence.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ FIELDS: tuple[str, ...] = (
 BOOL_FIELDS: frozenset[str] = frozenset(
     {"is_cropped", "is_segmented", "is_augmented", "is_delegate"}
 )
+
+DELEGATE_TYPES: tuple[str, ...] = ("average", "centroid", "weighted", "medoid")
 
 # The three preprocessing cases of the experiment grid, exactly as constructed
 # at 32_create_delegate_vector.py:104-117 and 33_run_all_experiments.py:122-137.
@@ -260,6 +263,15 @@ class PayloadColumns:
             kw[f] = bool(self._cols[f][row])
         kw["img_path"] = self._img_path[row] or ""
         return Payload(**kw)
+
+    def row_by_path(self, img_path: str) -> int | None:
+        """Row whose stored img_path is exactly ``img_path`` (the last
+        writer of a shared path), or None."""
+        return self._path_index.get(img_path)
+
+    def path_of(self, row: int) -> str:
+        """img_path of one row without building a full Payload."""
+        return self._img_path[row] or ""
 
     def mask(self, flt: Filter | None) -> np.ndarray:
         """Boolean mask over rows [0, size) matching the filter."""

@@ -11,6 +11,10 @@ Tiers:
   * ``int8_scan_topk`` — the int8 scan (kernel B2 on CUDA) → top
     ``rescore`` candidates → exact f32 rescore. ``int8_cosine_topk`` is its
     exact twin over a plain integer matmul.
+  * ``int4_scan_topk`` — the same over rows packed two 4-bit dims per byte
+    with a per-row scale (``pack_rows_int4``; kernel B3 on CUDA): half the
+    int8 scan's bytes, and a top-k set that is approximate at the margin.
+    ``int4_cosine_topk`` is its exact twin over a plain unpack-and-matmul.
 
 ``torch.topk`` takes the place of JAX's ``approx_max_k`` and ``lax.top_k``.
 It promises no order among equal scores, so callers compare top-k by scores
@@ -21,6 +25,10 @@ from __future__ import annotations
 
 import torch
 
+from retrieval_based_object_detection_tpu_torch.ops.int4_scan import (
+    int4_scan_scores,
+    int4_scan_scores_plain,
+)
 from retrieval_based_object_detection_tpu_torch.ops.int8_scan import (
     int8_scan_scores,
     int8_scan_scores_plain,
@@ -123,3 +131,68 @@ def int8_cosine_topk(
     cand_s, cand_i = torch.topk(scores, min(rescore, gallery_i8.shape[0]),
                                 dim=1)
     return _rescore(qn, gallery_f32, cand_s, cand_i, k, cand_s > sentinel)
+
+
+def pack_rows_int4(normalized_rows: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int4 quantisation, packed two dims per byte.
+
+    Returns (packed [N, D/2] int8, scales [N] f32), bit for bit the JAX
+    package's: s = max(max|row|, 1e-12) / 7, q = clip(round(row / s), -8, 7)
+    (a true division and round-half-even, as ``jnp`` does), and dim d and
+    dim d + D/2 share byte d as ``16·hi + lo + 8``, formed in int16 before
+    the cast. Requires even D."""
+    n, d = normalized_rows.shape
+    if d % 2:
+        raise ValueError(f"dim={d}: two dims pack per byte (needs even dim)")
+    s = torch.clamp(normalized_rows.abs().amax(dim=1, keepdim=True),
+                    min=1e-12) / 7.0
+    q = torch.clamp(torch.round(normalized_rows / s), -8, 7).to(torch.int16)
+    lo, hi = q[:, : d // 2], q[:, d // 2:]
+    return (hi * 16 + lo + 8).to(torch.int8), s[:, 0]
+
+
+def int4_scan_topk(
+    queries: torch.Tensor,      # [Q, D] unnormalised f32
+    packed: torch.Tensor,       # [N, D/2] int8 (pack_rows_int4)
+    scales: torch.Tensor,       # [N] f32 per-row scales
+    gallery_f32: torch.Tensor,  # [N, D] normalised f32 (for exact rescoring)
+    mask: torch.Tensor,         # [N] bool
+    k: int,
+    rescore: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Half-bandwidth serving scan: scale-compensated int4 scores (kernel
+    B3, in-kernel filter penalty) → top-``rescore`` candidates → exact f32
+    rescore. Hit scores are exact cosines; the top-k SET is approximate at
+    the margin (4-bit resolution)."""
+    N = gallery_f32.shape[0]
+    qn = l2_normalize(queries)
+    q_i8 = quantize_rows_int8(qn)
+    penalty = torch.where(mask, 0.0, NEG_INF).to(torch.float32)
+    scores = int4_scan_scores(q_i8, packed, scales, penalty)
+    cand_s, cand_i = torch.topk(scores, min(rescore, N), dim=1)
+    return _rescore(qn, gallery_f32, cand_s, cand_i, k,
+                    cand_s > NEG_INF / 2)
+
+
+def int4_cosine_topk(
+    queries: torch.Tensor,      # [Q, D] unnormalised f32
+    packed: torch.Tensor,       # [N, D/2] int8 (pack_rows_int4)
+    scales: torch.Tensor,       # [N] f32
+    gallery_f32: torch.Tensor,  # [N, D] normalised f32
+    mask: torch.Tensor,         # [N] bool
+    k: int,
+    rescore: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact twin of ``int4_scan_topk``: the same scores from a plain
+    unpack-and-matmul, masked afterwards, → top-``rescore`` candidates →
+    exact f32 rescore. The off-GPU tier."""
+    qn = l2_normalize(queries)
+    q_i8 = quantize_rows_int8(qn)
+    no_penalty = torch.zeros(packed.shape[0], dtype=torch.float32,
+                             device=packed.device)
+    scores = int4_scan_scores_plain(q_i8, packed, scales, no_penalty)
+    scores = torch.where(mask[None, :], scores, NEG_INF)
+    cand_s, cand_i = torch.topk(scores, min(rescore, packed.shape[0]), dim=1)
+    return _rescore(qn, gallery_f32, cand_s, cand_i, k,
+                    cand_s > NEG_INF / 2)

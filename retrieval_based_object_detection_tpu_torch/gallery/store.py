@@ -5,19 +5,21 @@ vectors in a host float32 buffer mirrored lazily onto the device as padded,
 L2-normalised tensors. Filters lower to a boolean row mask; the device does
 one masked matmul (or the int8 scan) plus top-k.
 
-This is the serving subset of the JAX package's ``gallery/store.py``:
-``upsert``, ``count``, ``scroll``/``scroll_all``, ``distinct``,
-``vectors_matching``, incrementally patched f32/bf16/int8 device mirrors,
-and ``search`` with methods exact/bf16/int8 under the same auto-routing and
-constants. What it leaves out raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+This is the serving and experiment subset of the JAX package's
+``gallery/store.py``: ``upsert``, ``count``, ``scroll``/``scroll_all``,
+``distinct``, ``vectors_matching``, ``retrieve``, ``get_by_path`` (with the
+resolved-path fallback), incrementally patched f32/bf16/int8/int4 device
+mirrors, and ``search`` with methods exact/bf16/int8/int4 under the same
+auto-routing and constants. What it leaves out raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from dataclasses import dataclass
-from typing import Any, Sequence
+from typing import Any, Iterable, Sequence
 
 import numpy as np
 import torch
@@ -93,6 +95,8 @@ class Gallery:
         self._dev_f32: torch.Tensor | None = None   # normalised f32
         self._dev_bf16: torch.Tensor | None = None  # normalised bf16
         self._dev_int8: torch.Tensor | None = None  # quantised scan tier
+        # int4 tier: (packed [N, D/2] int8, per-row scales [N] f32)
+        self._dev_int4: tuple[torch.Tensor, torch.Tensor] | None = None
         # Host rows [0, _synced) are reflected in the mirrors except for
         # the contiguous dirty range [_dirty_lo, _dirty_hi).
         self._synced = 0
@@ -102,6 +106,18 @@ class Gallery:
         self._mask_cache: dict[Any, torch.Tensor] = {}
         # Guards lazy mirror and mask builds under concurrent readers.
         self._view_mut = threading.RLock()
+        # Resolved-path fallback index for get_by_path (lazy, maintained
+        # incrementally across writes — see _patch_resolved). Pure string
+        # normalisation, no per-row filesystem syscalls. The port has no
+        # deletes yet, so every row is alive and the index needs no
+        # liveness checks.
+        self._resolved_paths: dict[str, int] | None = None
+        self._resolved_back: dict[int, str] = {}   # row -> indexed key
+        # Rows whose key lost to an earlier row (duplicate resolved
+        # paths): promoted into the index when the winner is overwritten.
+        self._resolved_dups: dict[str, list[int]] = {}
+        self._resolved_dirty: set[int] = set()     # rows to re-index
+        self._resolved_hi = 0                      # rows [0, hi) indexed
 
     # ------------------------------------------------------------ size
     @property
@@ -193,6 +209,7 @@ class Gallery:
             self._mark_dirty(int(existing.min()), int(existing.max()) + 1)
         else:
             self._mask_cache.clear()  # appends change the validity mask
+        self._patch_resolved(rows)
         self._wseq += 1
         return len(ids)
 
@@ -219,6 +236,116 @@ class Gallery:
             )
             for r in rows
         ]
+
+    def retrieve(self, ids: Sequence[str], with_vectors: bool = True
+                 ) -> list[Record]:
+        """Records of the given ids, in order; unknown ids are skipped."""
+        out = []
+        for pid in ids:
+            row = self._id_to_row.get(pid)
+            if row is None:
+                continue
+            out.append(Record(
+                id=pid,
+                payload=self._payloads.get_row(row),
+                vector=self._vectors[row].copy() if with_vectors else None,
+            ))
+        return out
+
+    def get_by_path(self, img_path: str, with_vectors: bool = True
+                    ) -> Record | None:
+        """O(1) lookup by exact img_path (33_run_all_experiments.py:96-110).
+
+        Falls back to RESOLVED-path matching on an exact miss: the embed
+        run and the experiment run may spell the same file differently
+        (absolute vs relative, ``./`` prefix, another CWD) — point IDs
+        already resolve (utils.ids), so the path index must too or every
+        lookup misses and the result CSV comes out empty."""
+        row = self._payloads.row_by_path(img_path)
+        if row is None:
+            row = self._resolved_row(img_path)
+        if row is None:
+            return None
+        return Record(
+            id=self._ids[row],
+            payload=self._payloads.get_row(row),
+            vector=self._vectors[row].copy() if with_vectors else None,
+        )
+
+    @staticmethod
+    def _resolve_key(p: str) -> str:
+        """Pure-string path normalisation (absolutise + collapse ``.``/
+        ``..``/``//``): unifies the abs-vs-relative and ``./`` spellings
+        without a filesystem call per row (symlink aliases are the one
+        case this does not unify)."""
+        return os.path.normpath(os.path.abspath(p))
+
+    def _resolved_remove(self, r: int, key: str) -> None:
+        """Detach row ``r`` from ``key``; if it was the index winner,
+        promote the next duplicate so a shared resolved path stays
+        findable after its first row is overwritten."""
+        idx, dups = self._resolved_paths, self._resolved_dups
+        if idx.get(key) == r:
+            del idx[key]
+            lst = dups.get(key)
+            if lst:
+                idx[key] = lst.pop(0)
+            if lst is not None and not lst:
+                dups.pop(key, None)
+        else:
+            lst = dups.get(key)
+            if lst is not None:
+                if r in lst:
+                    lst.remove(r)
+                if not lst:
+                    dups.pop(key, None)
+
+    def _index_resolved_rows(self, rows: Iterable[int]) -> None:
+        idx, back = self._resolved_paths, self._resolved_back
+        for r in rows:
+            old = back.pop(r, None)
+            if old is not None:
+                self._resolved_remove(r, old)
+            p = self._payloads.path_of(r)
+            if not p:
+                continue
+            key = self._resolve_key(p)
+            if key not in idx:  # first row wins on duplicate paths
+                idx[key] = r
+            else:
+                self._resolved_dups.setdefault(key, []).append(r)
+            back[r] = key
+
+    def _patch_resolved(self, rows: np.ndarray) -> None:
+        """Record overwritten rows for incremental re-index (appends are
+        covered by the _resolved_hi watermark). Past a threshold a lazy
+        full rebuild is cheaper than patching row by row."""
+        if self._resolved_paths is None:
+            return
+        self._resolved_dirty.update(
+            int(r) for r in rows if r < self._resolved_hi)
+        if len(self._resolved_dirty) > 65536:
+            self._resolved_paths = None
+
+    def _resolved_row(self, img_path: str) -> int | None:
+        """Resolved-path fallback index (lazy; patched incrementally),
+        built under ``_view_mut`` so concurrent readers never index a row
+        twice."""
+        with self._view_mut:
+            n = self._nrows
+            if self._resolved_paths is None:
+                self._resolved_paths = {}
+                self._resolved_back = {}
+                self._resolved_dups = {}
+                self._resolved_dirty = set()
+                self._resolved_hi = 0
+            if self._resolved_dirty:
+                self._index_resolved_rows(sorted(self._resolved_dirty))
+                self._resolved_dirty.clear()
+            if self._resolved_hi < n:
+                self._index_resolved_rows(range(self._resolved_hi, n))
+                self._resolved_hi = n
+            return self._resolved_paths.get(self._resolve_key(img_path))
 
     def scroll(
         self,
@@ -309,6 +436,7 @@ class Gallery:
             # The int8 kernel masks its ragged tile, so no tile multiple.
             self._padded = search_lib.pad_rows(max(n, 2 * self._padded))
             self._dev_f32 = self._dev_bf16 = self._dev_int8 = None
+            self._dev_int4 = None
             self._mask_cache.clear()
         # The int8 tier rescores from the f32 mirror, so i8 implies f32.
         if ((f32 or i8) and self._dev_f32 is None) or (
@@ -351,6 +479,10 @@ class Gallery:
             if self._dev_int8 is not None:
                 self._dev_int8[s: s + chunk] = \
                     search_lib.quantize_rows_int8(upd)
+            if self._dev_int4 is not None:
+                packed, scales = self._dev_int4
+                packed[s: s + chunk], scales[s: s + chunk] = \
+                    search_lib.pack_rows_int4(upd)
             start += chunk
 
     def _device_mask(self, flt: Filter | None) -> torch.Tensor:
@@ -406,11 +538,14 @@ class Gallery:
         """Batched cosine top-k. ``queries`` is [Q, D] or [D].
 
         ``method``: "exact" (f32), "bf16" (bf16 scan, f32 scores), "int8"
-        (int8 scan + exact f32 rescore of the top candidates), or None —
+        (int8 scan + exact f32 rescore of the top candidates), "int4"
+        (half the int8 scan's bytes: per-row 4-bit packing, scale-
+        compensated in the scan, the same f32 rescore — exact hit scores,
+        a top-k SET approximate at the margin; even dims only), or None —
         exact when ``exact=True``; else auto: capacity once the standard
         mirrors exceed CAPACITY_AUTO_BYTES (not ported: raises), int8 on
-        CUDA at ≥INT8_SCAN_MIN_ROWS rows, bf16 below. "int4", "capacity"
-        and "sharded[_<tier>]" are not ported and raise.
+        CUDA at ≥INT8_SCAN_MIN_ROWS rows, bf16 below. "capacity" and
+        "sharded[_<tier>]" are not ported and raise.
         """
         n = self._nrows
         if method is None:
@@ -422,25 +557,44 @@ class Gallery:
             else:
                 method = ("int8" if n >= self.INT8_SCAN_MIN_ROWS
                           and self.device.type == "cuda" else "bf16")
-        if method in ("int4", "capacity"):
+        if method == "capacity":
             raise _not_ported(f"method={method!r}", "A.4")
         if method == "sharded" or method.startswith("sharded_"):
             raise _not_ported(f"method={method!r}", "A.6")
-        if method not in ("exact", "bf16", "int8"):
+        if method not in ("exact", "bf16", "int8", "int4"):
             raise ValueError(
                 f"unknown method {method!r}: expected one of "
-                "'exact', 'bf16', 'int8' (or None for auto)")
+                "'exact', 'bf16', 'int8', 'int4' (or None for auto)")
+        if method == "int4" and self.dim % 2:
+            raise ValueError(f"method={method!r} requires an even dim "
+                             "(two dims pack per byte)")
         queries = np.asarray(queries, dtype=np.float32)
         if queries.ndim == 1:
             queries = queries[None, :]
         if len(self) == 0:
             return [[] for _ in range(queries.shape[0])]
-        self._sync_mirrors(f32=(method in ("exact", "int8")),
+        self._sync_mirrors(f32=(method in ("exact", "int8", "int4")),
                            bf16=(method == "bf16"), i8=(method == "int8"))
         mask = self._device_mask(flt)
         k_eff = min(k, n)
         q = torch.from_numpy(queries).to(self.device)
-        if method == "int8":
+        if method == "int4":
+            rescore = min(max(8 * k_eff, 256), self._padded)
+            if self._dev_int4 is None:
+                with self._view_mut:
+                    if self._dev_int4 is None:
+                        # Packed on the device from the (already patched)
+                        # f32 mirror.
+                        self._dev_int4 = search_lib.pack_rows_int4(
+                            self._dev_f32)
+            packed, scales = self._dev_int4
+            # The scan kernel (B3) on CUDA; its plain twin elsewhere, as
+            # the JAX package serves int4 off-TPU.
+            topk = (search_lib.int4_scan_topk if self.device.type == "cuda"
+                    else search_lib.int4_cosine_topk)
+            scores, idx = topk(q, packed, scales, self._dev_f32, mask,
+                               k=k_eff, rescore=rescore)
+        elif method == "int8":
             rescore = min(max(8 * k_eff, 256), self._padded)
             scores, idx = search_lib.int8_scan_topk(
                 q, self._dev_int8, self._dev_f32, mask, k=k_eff,

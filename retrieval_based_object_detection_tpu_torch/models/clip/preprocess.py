@@ -1,17 +1,56 @@
-"""CLIP image normalisation constants and batch padding.
+"""CLIP image preprocessing on the host: the PIL path and batch padding.
 
-The reference normalises with CLIP's mean/std after ToTensor
-(31_clip_embedding_and_save_vector.py:32-33). The bicubic resize paths of
-the JAX package (``preprocess_pil``, ``preprocess_batch``) are not ported
-yet.
+The reference preprocesses with the torchvision Compose returned by
+``clip.load`` — Resize(224, bicubic) → CenterCrop(224) → ToTensor →
+Normalize — one image at a time on the host
+(31_clip_embedding_and_save_vector.py:32-33). ``preprocess_pil`` is that
+pipeline through PIL, byte for byte the JAX package's. RGBA inputs
+(segmented PNGs) are reduced with ``convert("RGB")`` as the reference does:
+alpha is dropped, not composited. The batched device resize of the JAX
+package (``preprocess_batch``) is not ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+try:  # PIL is required for the host path only.
+    from PIL import Image
+except ImportError:  # pragma: no cover
+    Image = None
+
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+
+def preprocess_pil(img, size: int = 224) -> np.ndarray:
+    """PIL path: [size, size, 3] float32, normalised. Parity with torch."""
+    if img.mode != "RGB":
+        img = img.convert("RGB")
+    w, h = img.size
+    # torchvision Resize(int): shorter side -> size, longer side truncated
+    # (int(), not round() — matches torchvision and HF exactly), bicubic.
+    if w < h:
+        new_w, new_h = size, max(size, int(size * h / w))
+    else:
+        new_w, new_h = max(size, int(size * w / h)), size
+    img = img.resize((new_w, new_h), Image.BICUBIC)
+    # CenterCrop(size) — torchvision rounds the same way.
+    left = int(round((new_w - size) / 2.0))
+    top = int(round((new_h - size) / 2.0))
+    img = img.crop((left, top, left + size, top + size))
+    arr = np.asarray(img, dtype=np.float32) / 255.0
+    return (arr - CLIP_MEAN) / CLIP_STD
+
+
+def load_and_preprocess(path, size: int = 224) -> np.ndarray | None:
+    """Open → RGB → preprocess; returns None on unreadable files (the
+    reference logs and skips, 31_clip_embedding_and_save_vector.py:30-39)."""
+    try:
+        with Image.open(path) as img:
+            return preprocess_pil(img, size)
+    except Exception:
+        return None
 
 
 def pad_batch(arrs: list[np.ndarray], batch_size: int

@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from retrieval_based_object_detection_tpu_torch.ops.cuda_lib import (
+    MAX_SMEM,
     CudaLibrary,
 )
 
@@ -28,8 +29,6 @@ KERNEL = CudaLibrary("clip_attention", {
 })
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Dynamic shared memory one block may use on Hopper.
-_MAX_SMEM = 232_448
 
 
 def clip_attention_core_plain(qkv: torch.Tensor, heads: int) -> torch.Tensor:
@@ -68,10 +67,10 @@ def clip_attention_core(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     W = threeW // 3
     D = W // heads
     smem = (3 * T * (D + 1) + T * (T + 1)) * 4
-    if smem > _MAX_SMEM:
+    if smem > MAX_SMEM:
         raise ValueError(
             f"T={T}, D={D}: one head's q, k, v and logits need {smem} bytes "
-            f"of shared memory, more than the {_MAX_SMEM} a block has")
+            f"of shared memory, more than the {MAX_SMEM} a block has")
     out = torch.empty((B, T, W), dtype=qkv.dtype, device=qkv.device)
     if B == 0 or T == 0:
         return out

@@ -27,6 +27,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# Dynamic shared memory one block may use on sm_90 (227 KB).
+MAX_SMEM = 232_448
 
 
 def _nvcc() -> str:

@@ -10,8 +10,8 @@ package's math:
 
 Each takes a padded [N, D] member matrix plus a validity mask. The medoid's
 [N, N] distance matrix uses the Gram trick in f32 (the caller keeps TF32
-off). Classes too large for it need the blocked medoid kernel, which is
-not ported yet.
+off). Classes too large for it take the blocked medoid kernel
+(``ops.medoid``).
 """
 
 from __future__ import annotations

@@ -2,9 +2,11 @@
 
 For each requested class × preprocessing case × data_type, gathers the
 matching raw vectors from the gallery, computes all four representative
-vectors on the gallery's device (``ops.delegates.compute_all_delegates``)
-and upserts them with the reference's deterministic delegate IDs and
-payload conventions (32_create_delegate_vector.py:34-42, 104-131).
+vectors on the gallery's device (``ops.delegates.compute_all_delegates``;
+above ``LARGE_CLASS_THRESHOLD`` members the medoid comes from the blocked
+kernel, ``ops.medoid.medoid_large``) and upserts them with the reference's
+deterministic delegate IDs and payload conventions
+(32_create_delegate_vector.py:34-42, 104-131).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from retrieval_based_object_detection_tpu_torch.gallery.schema import (
 )
 from retrieval_based_object_detection_tpu_torch.gallery.store import Gallery
 from retrieval_based_object_detection_tpu_torch.ops import delegates as D
+from retrieval_based_object_detection_tpu_torch.ops.medoid import medoid_large
 from retrieval_based_object_detection_tpu_torch.utils.ids import delegate_id
 
 # Above this member count the dense [n, n] medoid matrix (n² · 4 bytes)
@@ -77,17 +80,19 @@ def build_delegates(
                 member_counts[(cls, case, data_type)] = members.shape[0]
                 if members.shape[0] == 0:
                     continue
-                if members.shape[0] > LARGE_CLASS_THRESHOLD:
-                    raise NotImplementedError(
-                        f"class {cls!r} has {members.shape[0]} members: "
-                        f"above {LARGE_CLASS_THRESHOLD} the medoid needs the "
-                        "blocked medoid kernel (B4), which is not ported "
-                        "yet (ROADMAP.md queue B)")
                 recs, _ = gallery.scroll(flt, limit=1)
                 base = recs[0].payload
-                outs = D.compute_all_delegates(
-                    torch.from_numpy(members).to(gallery.device),
-                    alpha=alpha)
+                dev_members = torch.from_numpy(members).to(gallery.device)
+                if members.shape[0] > LARGE_CLASS_THRESHOLD:
+                    # The dense [n, n] matrix is not worth materialising:
+                    # the medoid goes through the blocked kernel (B4), the
+                    # O(n) strategies stay plain reductions.
+                    outs = D.compute_partial_delegates(dev_members,
+                                                       alpha=alpha)
+                    outs["medoid"] = torch.from_numpy(
+                        medoid_large(members, device=gallery.device))
+                else:
+                    outs = D.compute_all_delegates(dev_members, alpha=alpha)
                 for dtype in D.DELEGATE_TYPES:
                     payload = Payload(
                         data_type=base.data_type,

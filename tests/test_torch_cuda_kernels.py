@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from retrieval_based_object_detection_tpu_torch.ops import clip_attention as CA
+from retrieval_based_object_detection_tpu_torch.ops import int4_scan as S4
 from retrieval_based_object_detection_tpu_torch.ops import int8_scan as S
+from retrieval_based_object_detection_tpu_torch.ops import medoid as M
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +88,81 @@ def test_scan_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(TypeError):
         S.int8_scan_scores(q[:, :16].contiguous().float(), rows[:, :16],
                            torch.zeros(8, device=cuda_device))
+
+
+@pytest.mark.parametrize("Q,N,D", [(16, 100_003, 512), (1, 129, 512),
+                                   (40, 4096, 512), (3, 1000, 1024),
+                                   (5, 77, 32)])
+def test_int4_scan_kernel_bit_exact_vs_plain(cuda_device, Q, N, D):
+    """Every byte value, positive scales, 10% of rows masked, and query
+    halves drawn apart so a lo/hi swap would show."""
+    g = torch.Generator(device="cpu").manual_seed(N + D)
+    q = torch.randint(-127, 128, (Q, D), generator=g, dtype=torch.int8)
+    q[:, D // 2:] //= 3
+    packed = torch.randint(-128, 128, (N, D // 2), generator=g,
+                           dtype=torch.int8)
+    scales = torch.rand(N, generator=g) * 0.2 + 1e-3
+    pen = torch.where(torch.rand(N, generator=g) < 0.1, -1e30, 0.0)
+    args = [t.to(cuda_device) for t in (q, packed, scales, pen)]
+    before = S4.KERNEL.launches
+    got = S4.int4_scan_scores(*args)
+    torch.cuda.synchronize()
+    assert S4.KERNEL.launches == before + 1
+    torch.testing.assert_close(got, S4.int4_scan_scores_plain(*args),
+                               atol=0, rtol=0)
+    cpu = S4.int4_scan_scores(q, packed, scales, pen)
+    torch.testing.assert_close(got.cpu(), cpu, atol=0, rtol=0)
+
+
+def test_int4_scan_kernel_rejects_what_it_does_not_take(cuda_device):
+    def z(*shape, dtype=torch.int8):
+        return torch.zeros(*shape, dtype=dtype, device=cuda_device)
+
+    with pytest.raises(ValueError, match="shape"):  # odd dim
+        S4.int4_scan_scores(z(2, 33), z(8, 16), z(8, dtype=torch.float32),
+                            z(8, dtype=torch.float32))
+    with pytest.raises(ValueError, match="dim % 32"):
+        S4.int4_scan_scores(z(2, 48), z(8, 24), z(8, dtype=torch.float32),
+                            z(8, dtype=torch.float32))
+    with pytest.raises(TypeError):
+        S4.int4_scan_scores(z(2, 64), z(8, 32), z(8, dtype=torch.float64),
+                            z(8, dtype=torch.float32))
+    with pytest.raises(ValueError, match="contiguous"):
+        S4.int4_scan_scores(z(2, 64), z(32, 8).T, z(8, dtype=torch.float32),
+                            z(8, dtype=torch.float32))
+
+
+# Sums of up to N distances: the JAX package's medoid tolerance
+# (tests/test_pallas_medoid.py), for the Gram trick summed in another order.
+@pytest.mark.parametrize("N,D", [(12_000, 512), (1, 512), (65, 512),
+                                 (1000, 36), (4097, 128)])
+def test_medoid_kernel_matches_plain(cuda_device, N, D):
+    g = torch.Generator(device="cpu").manual_seed(N + D)
+    x = torch.nn.functional.normalize(torch.randn(N, D, generator=g), dim=1)
+    x = x.to(cuda_device)
+    before = M.KERNEL.launches
+    got = M.pairwise_distance_sums(x)
+    torch.cuda.synchronize()
+    assert M.KERNEL.launches == before + 1
+    want = M.pairwise_distance_sums_plain(x)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=5e-2)
+    # Deterministic: no float atomics, so a second run is bit-identical.
+    assert torch.equal(M.pairwise_distance_sums(x), got)
+    i = M.medoid_index(got)
+    assert i == M.medoid_index(want) or \
+        abs(float(want[i] - want.min())) <= 5e-2 + 1e-4 * float(want.min())
+
+
+def test_medoid_kernel_self_distance_is_zero(cuda_device):
+    x = torch.tensor([[12.25, -31.5, 3.0, 0.5]], device=cuda_device)
+    assert M.pairwise_distance_sums(x).item() == 0.0
+
+
+def test_medoid_kernel_rejects_what_it_does_not_take(cuda_device):
+    with pytest.raises(TypeError):
+        M.pairwise_distance_sums(torch.zeros(8, 16, dtype=torch.float64,
+                                             device=cuda_device))
+    with pytest.raises(ValueError, match="dim % 4"):
+        M.pairwise_distance_sums(torch.zeros(8, 6, device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        M.pairwise_distance_sums(torch.zeros(16, 8, device=cuda_device).T)

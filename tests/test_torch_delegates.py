@@ -104,10 +104,20 @@ def test_build_delegates_on_e2e_tree_matches_jax(e2e_gallery):
 
 
 def test_large_class_raises_until_the_medoid_kernel_is_ported(monkeypatch):
-    g = TGallery("big", dim=4, device="cpu")
-    g.upsert([f"p{i}" for i in range(5)], np.ones((5, 4), np.float32),
-             [tschema.Payload(data_type="original_images", class_name="x")
-              for _ in range(5)])
+    """The blocked medoid kernel (B4) is ported: a class above the
+    threshold no longer raises, and its delegates equal the dense path's."""
+    rng = np.random.default_rng(9)
+    vecs = rng.normal(size=(5, 4)).astype(np.float32)
+    pls = [tschema.Payload(data_type="original_images", class_name="x")
+           for _ in range(5)]
+    dense = TGallery("dense", dim=4, device="cpu")
+    big = TGallery("big", dim=4, device="cpu")
+    for g in (dense, big):
+        g.upsert([f"p{i}" for i in range(5)], vecs, pls)
+    tdp.build_delegates(dense)
     monkeypatch.setattr(tdp, "LARGE_CLASS_THRESHOLD", 4)
-    with pytest.raises(NotImplementedError, match="B4"):
-        tdp.build_delegates(g)
+    assert tdp.build_delegates(big).n_delegates_written == 4
+    flt = tschema.Filter(must={"is_delegate": True})
+    for a, b in zip(dense.scroll_all(flt, True), big.scroll_all(flt, True)):
+        assert a.id == b.id
+        np.testing.assert_allclose(a.vector, b.vector, atol=1e-6)

@@ -146,11 +146,13 @@ def test_unported_paths_raise_naming_the_roadmap():
     g = TGallery("u", dim=8, device="cpu")
     g.upsert(["a"], np.ones((1, 8), np.float32),
              [tschema.Payload(data_type="original_images", class_name="x")])
-    for method in ("int4", "capacity", "sharded", "sharded_int8"):
+    for method in ("capacity", "sharded", "sharded_int8"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             g.search(np.ones(8, np.float32), method=method)
     with pytest.raises(ValueError, match="unknown method"):
         g.search(np.ones(8, np.float32), method="int16")
+    with pytest.raises(NotImplementedError, match="A.4"):
+        g.search(np.ones(8, np.float32), method="capacity")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         g.delete(["a"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):

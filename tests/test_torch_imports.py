@@ -28,6 +28,10 @@ def _run(code: str) -> subprocess.CompletedProcess:
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert len(mods) >= 20, mods
+    p = "retrieval_based_object_detection_tpu_torch."
+    for m in ("utils.tree", "utils.loader", "ops.medoid", "ops.int4_scan",
+              "pipelines.experiments"):
+        assert p + m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
