@@ -220,7 +220,9 @@ def medoid_phase(torch, M, seed: int) -> dict:
         raise AssertionError("medoid kernel's argmin is not the plain one")
     if not torch.equal(M.pairwise_distance_sums(x), got):
         raise AssertionError("medoid kernel sums differ between runs")
-    b_ms, b_by = bound_ms(4 * N * D + 4 * N, 2 * N * N * D, "float32")
+    # The sums need each unordered pair's distance once: N(N-1)/2 dot
+    # products of 2D operations each.
+    b_ms, b_by = bound_ms(4 * N * D + 4 * N, N * (N - 1) * D, "float32")
     out = {
         "max_abs_err": float((got - want).abs().max()),
         "rtol": MEDOID_RTOL, "atol": MEDOID_ATOL,

@@ -186,7 +186,8 @@ def int4_cosine_topk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact twin of ``int4_scan_topk``: the same scores from a plain
     unpack-and-matmul, masked afterwards, → top-``rescore`` candidates →
-    exact f32 rescore. The off-GPU tier."""
+    exact f32 rescore. The yardstick that tests and ``chip_smoke.py`` hold
+    the scan path against; ``Gallery.search`` does not call it."""
     qn = l2_normalize(queries)
     q_i8 = quantize_rows_int8(qn)
     no_penalty = torch.zeros(packed.shape[0], dtype=torch.float32,

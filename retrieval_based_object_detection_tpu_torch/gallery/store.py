@@ -588,12 +588,9 @@ class Gallery:
                         self._dev_int4 = search_lib.pack_rows_int4(
                             self._dev_f32)
             packed, scales = self._dev_int4
-            # The scan kernel (B3) on CUDA; its plain twin elsewhere, as
-            # the JAX package serves int4 off-TPU.
-            topk = (search_lib.int4_scan_topk if self.device.type == "cuda"
-                    else search_lib.int4_cosine_topk)
-            scores, idx = topk(q, packed, scales, self._dev_f32, mask,
-                               k=k_eff, rescore=rescore)
+            scores, idx = search_lib.int4_scan_topk(
+                q, packed, scales, self._dev_f32, mask, k=k_eff,
+                rescore=rescore)
         elif method == "int8":
             rescore = min(max(8 * k_eff, 256), self._padded)
             scores, idx = search_lib.int8_scan_topk(

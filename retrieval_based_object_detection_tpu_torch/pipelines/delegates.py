@@ -4,7 +4,7 @@ For each requested class × preprocessing case × data_type, gathers the
 matching raw vectors from the gallery, computes all four representative
 vectors on the gallery's device (``ops.delegates.compute_all_delegates``;
 above ``LARGE_CLASS_THRESHOLD`` members the medoid comes from the blocked
-kernel, ``ops.medoid.medoid_large``) and upserts them with the reference's
+kernel, ``ops.medoid.pairwise_distance_sums``) and upserts them with the reference's
 deterministic delegate IDs and payload conventions
 (32_create_delegate_vector.py:34-42, 104-131).
 """
@@ -22,7 +22,10 @@ from retrieval_based_object_detection_tpu_torch.gallery.schema import (
 )
 from retrieval_based_object_detection_tpu_torch.gallery.store import Gallery
 from retrieval_based_object_detection_tpu_torch.ops import delegates as D
-from retrieval_based_object_detection_tpu_torch.ops.medoid import medoid_large
+from retrieval_based_object_detection_tpu_torch.ops.medoid import (
+    medoid_index,
+    pairwise_distance_sums,
+)
 from retrieval_based_object_detection_tpu_torch.utils.ids import delegate_id
 
 # Above this member count the dense [n, n] medoid matrix (n² · 4 bytes)
@@ -89,8 +92,8 @@ def build_delegates(
                     # O(n) strategies stay plain reductions.
                     outs = D.compute_partial_delegates(dev_members,
                                                        alpha=alpha)
-                    outs["medoid"] = torch.from_numpy(
-                        medoid_large(members, device=gallery.device))
+                    outs["medoid"] = dev_members[medoid_index(
+                        pairwise_distance_sums(dev_members))]
                 else:
                     outs = D.compute_all_delegates(dev_members, alpha=alpha)
                 for dtype in D.DELEGATE_TYPES:

@@ -94,18 +94,14 @@ def allocate_result_dir(results_dir: str | Path,
 
 def _cosine_matrix(tests: np.ndarray, delegates: np.ndarray,
                    device: torch.device) -> np.ndarray:
-    """[N, D] x [C, D] -> [N, C] cosine similarities in full f32 (no TF32:
-    the counterpart of JAX's HIGHEST precision)."""
+    """[N, D] x [C, D] -> [N, C] cosine similarities in full f32, the
+    counterpart of JAX's HIGHEST precision. Expects TF32 off for matmuls
+    (PyTorch's default), as ``ops.medoid`` does."""
     def norm(x):
         x = torch.from_numpy(np.asarray(x, np.float32)).to(device)
         return x / torch.clamp(
             torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True)), min=1e-12)
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return (norm(tests) @ norm(delegates).T).cpu().numpy()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return (norm(tests) @ norm(delegates).T).cpu().numpy()
 
 
 def _delegate_filter(case: str, dtype: str, data_type: str) -> Filter:
