@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch port: its serving and offline paths on
-one NVIDIA GPU.
+"""Chip smoke test of the PyTorch port: its serving, offline, training and
+segment paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
 Builds the port's CUDA kernels from ``csrc/`` (one nvcc per source, all
 started together) and holds each against its plain PyTorch version at the
-shapes its path gives it. Then it drives two paths through the calls a
-user makes, with a full-width CLIP ViT-B/32 from seeded weights:
+shapes its path gives it. Then it drives four paths through the calls a
+user makes, at full width from seeded weights:
 
 - serving: a few hundred synthetic crops are embedded into a Gallery,
   ``build_delegates`` runs, ``serve_http`` answers concurrent
@@ -17,7 +17,15 @@ user makes, with a full-width CLIP ViT-B/32 from seeded weights:
   one class through ``embed_arrays`` (a group past the blocked-medoid
   threshold), ``build_delegates``, ``run_experiments`` in both match
   modes writing CSV/npy, and ``search(method="int4")`` on the 1M-row
-  gallery.
+  gallery;
+- training: ``fit`` fine-tunes ViT-B/32 (bf16 compute, f32 weights) for 12
+  steps of 64 on a colour-class tree with checkpoints, then resumes for 6
+  more under the cosine schedule; one f32 step's gradients are held
+  against the plain attention core on the card;
+- segment: SAM-B (1024 px) ``run_auto_segment`` over a small tree with a
+  file that does not decode, then ``set_image`` and ``predict``; the
+  encoder is held against its einsum attention and ``segment_batch``
+  against per-image ``predict`` on the card.
 
 Kernel launch counters are zeroed just before each path and read just
 after it.
@@ -54,6 +62,19 @@ INT4_REPLACES = "retrieval_based_object_detection_tpu/ops/int4_scan.py:80"
 MEDOID_SOURCE = "retrieval_based_object_detection_tpu_torch/csrc/medoid.cu"
 MEDOID_REPLACES = "retrieval_based_object_detection_tpu/ops/medoid.py:23"
 MEDOID_RTOL, MEDOID_ATOL = 1e-4, 5e-2  # tests/test_pallas_medoid.py
+BWD_REPLACES = "retrieval_based_object_detection_tpu/ops/clip_attention.py:50"
+FLASH_SOURCE = "retrieval_based_object_detection_tpu_torch/csrc/attention.cu"
+FLASH2D_REPLACES = "retrieval_based_object_detection_tpu/ops/attention.py:106"
+FLASH_REPLACES = "retrieval_based_object_detection_tpu/ops/attention.py:25"
+# B5 against the plain backward: f32 at the JAX package's custom-VJP
+# tolerance (tests/test_clip_fused_attention.py); bf16 both sides compute in
+# f32 and round once at the store, so one bf16 ulp apart at most.
+BWD_TOLS = {"bfloat16": (1e-3, 2 ** -7), "float32": (2e-4, 1e-4)}
+# B6/B7 against the plain oracle: f32, the same f32 sums in another order
+# over up to 4,096 keys; bf16, the kernel rounds each unnormalised p to bf16
+# before PV (as the Pallas kernel does) where the oracle keeps p in f32, at
+# most 2^-9 of the largest |v|, plus one bf16 ulp of the output.
+FLASH_TOLS = {"bfloat16": (1e-2, 2 ** -7), "float32": (1e-4, 1e-5)}
 
 COLORS = [(220, 40, 40), (40, 40, 220), (40, 190, 60), (230, 200, 30),
           (150, 60, 200), (30, 200, 200), (240, 120, 20), (90, 90, 90)]
@@ -123,6 +144,130 @@ def attention_phase(torch, F, CA, seed: int) -> dict:
             "bound_ms": b_ms, "bound_by": b_by,
         }
     log("attention_kernel_vs_plain", shape=[B, T, 3 * W], **out)
+    return out
+
+
+def attention_bwd_phase(torch, F, CA, seed: int) -> dict:
+    """B5 against its plain version at the training shape [64, 50, 2304]
+    with the output gradient [64, 50, 768], bf16 and f32. The library
+    yardstick is the backward alone of SDPA on the split q, k, v."""
+    B, T, H, D = 64, 50, 12, 64
+    W = H * D
+    g = torch.Generator(device="cpu").manual_seed(seed + 8)
+    base = torch.randn(B, T, 3 * W, generator=g).cuda()
+    dbase = torch.randn(B, T, W, generator=g).cuda()
+    out = {}
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        qkv, dout = base.to(dtype), dbase.to(dtype)
+        got = CA.clip_attention_core_bwd(qkv, dout, H)
+        torch.cuda.synchronize()
+        want = CA.clip_attention_core_bwd_plain(qkv, dout, H)
+        atol, rtol = BWD_TOLS[name]
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+        x = qkv.clone().requires_grad_(True)
+        q, k, v = (t.view(B, T, H, D).transpose(1, 2)
+                   for t in x.split(W, dim=-1))
+        sdpa = F.scaled_dot_product_attention(q, k, v)
+        d_heads = dout.view(B, T, H, D).transpose(1, 2)
+        size = qkv.element_size()
+        # qkv and dO read once, dqkv written once; recompute of the logits
+        # plus the four products (2 T^2 D each) and ~10 per logit for the
+        # softmax and dl.
+        n_bytes = B * T * (3 * W + W + 3 * W) * size
+        n_ops = B * H * (10 * T * T * D + 10 * T * T)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, name)
+        out[name] = {
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "atol": atol, "rtol": rtol,
+            "ms": cuda_ms(torch, lambda: CA.clip_attention_core_bwd(
+                qkv, dout, H)),
+            "plain_ms": cuda_ms(
+                torch, lambda: CA.clip_attention_core_bwd_plain(qkv, dout, H)),
+            "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                sdpa, (q, k, v), d_heads, retain_graph=True)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    log("attention_bwd_kernel_vs_plain", shape=[B, T, 3 * W], **out)
+    return out
+
+
+def flash_phase(torch, F, A, seed: int) -> dict:
+    """B6 at SAM-B's global shape [4, 12, 4096, 64] (grid 64 x 64) and its
+    windowed shape [100, 12, 196, 64] (14 x 14 windows of 4 images), and B7
+    at [4, 12, 4096, 64], each in f32 and bf16 against its plain version.
+    Yardsticks: SDPA with the bias expanded to a float attn_mask
+    [B, H, T, T] (B6; 3.2 GB in f32 at the global shape, 805 MB per image,
+    half that in bf16, which SDPA needs for a bf16 query), SDPA with no
+    mask (B7)."""
+    g = torch.Generator(device="cpu").manual_seed(seed + 9)
+    out = {}
+    for case, (B, H, gh, gw, D, bias) in {
+            "b6_global": (4, 12, 64, 64, 64, True),
+            "b6_windowed": (100, 12, 14, 14, 64, True),
+            "b7": (4, 12, 64, 64, 64, False)}.items():
+        T = gh * gw
+        q0, k0, v0 = (torch.randn(B, H, T, D, generator=g).cuda()
+                      for _ in range(3))
+        bh = torch.randn(B, H, T, gh, generator=g).cuda()
+        bw = torch.randn(B, H, T, gw, generator=g).cuda()
+        res = {}
+        for name, dtype in (("bfloat16", torch.bfloat16),
+                            ("float32", torch.float32)):
+            q, k, v = q0.to(dtype), k0.to(dtype), v0.to(dtype)
+            if bias:
+                def kernel():
+                    return A.flash_attention_2d_bias(q, k, v, bh, bw, gh, gw)
+
+                def plain():
+                    return A.flash_attention_2d_bias_plain(q, k, v, bh, bw,
+                                                           gh, gw)
+                mask = (bh[..., :, None] + bw[..., None, :]).reshape(
+                    B, H, T, T).to(dtype)
+
+                def library():
+                    return F.scaled_dot_product_attention(q, k, v,
+                                                          attn_mask=mask)
+            else:
+                def kernel():
+                    return A.flash_attention(q, k, v)
+
+                def plain():
+                    return A.flash_attention_plain(q, k, v)
+
+                def library():
+                    return F.scaled_dot_product_attention(q, k, v)
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            atol, rtol = FLASH_TOLS[name]
+            torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                       rtol=rtol)
+            size = q.element_size()
+            # q, k, v read and o written once, plus the two f32 bias
+            # tables; 4 T^2 Dh per (image, head) for QK^T and PV, and the
+            # two bias adds per logit.
+            n_bytes = 4 * B * H * T * D * size + \
+                (4 * B * H * T * (gh + gw) if bias else 0)
+            n_ops = B * H * (4 * T * T * D + (2 * T * T if bias else 0))
+            b_ms, b_by = bound_ms(n_bytes, n_ops, name)
+            big = T > 1024
+            res[name] = {
+                "max_abs_err": float((got.float() - want.float()).abs().max()),
+                "atol": atol, "rtol": rtol,
+                "ms": cuda_ms(torch, kernel, reps=5 if big else 20),
+                "plain_ms": cuda_ms(torch, plain, reps=3 if big else 20,
+                                    warmup=1),
+                "library_ms": cuda_ms(torch, library, reps=5 if big else 20),
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            del got, want
+            if bias:
+                del mask
+            torch.cuda.empty_cache()
+        out[case] = {"shape": [B, H, T, D], **res}
+        log(f"{case}_kernel_vs_plain", grid=[gh, gw], **out[case])
     return out
 
 
@@ -719,6 +864,282 @@ def gallery_int4_phase(torch, np, port, gallery, queries, picks) -> dict:
     return out
 
 
+def write_class_tree(np, root, seed: int, per_class: int, sizes=(224, 300),
+                     classes: int = len(COLORS)) -> int:
+    """``root/original_images/class<c>/img_<i>.png``: ``per_class`` colour
+    scenes of each class, their sides drawn from ``sizes``. Encoded on 8
+    threads."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for c in range(classes):
+        d = root / "original_images" / f"class{c}"
+        d.mkdir(parents=True)
+        for i in range(per_class):
+            h, w = rng.integers(*sizes, 2)
+            jobs.append((scene(np, rng, COLORS[c], h, w), d / f"img_{i}.png"))
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda j: Image.fromarray(j[0]).save(
+            j[1], compress_level=1), jobs))
+    return len(jobs)
+
+
+def training_path(torch, np, port, seed: int) -> dict:
+    """CLIP fine-tuning at full ViT-B/32 width through ``fit``: bf16
+    compute on f32 master weights, linear head, batch 64, 2 epochs of a
+    384-image tree of 8 colour classes (12 steps) with a checkpoint every 5
+    steps, then a resumed epoch (6 steps) with the cosine schedule. Every
+    tower block runs B1 forward and B5 backward."""
+    import tempfile
+    from pathlib import Path
+
+    clip_model, loop = port["clip_model"], port["train_loop"]
+    cfg = clip_model.VIT_B_32
+    params = clip_model.params_from_jax(clip_model.init_params(cfg, seed))
+    out = {"batch": 64, "compute_dtype": "bfloat16", "head": "linear"}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        out["tree_images"] = write_class_tree(np, root / "tree", seed + 10,
+                                              per_class=48)
+        out["tree_write_s"] = time.perf_counter() - t
+        log_file = root / "train.jsonl"
+        fits = []
+        for epochs, schedule in ((2, "constant"), (1, "cosine")):
+            fit_cfg = loop.FitConfig(
+                root_dir=str(root / "tree"), epochs=epochs, batch_size=64,
+                checkpoint_dir=str(root / "ckpt"), checkpoint_every=5,
+                seed=seed, lr_schedule=schedule, log_file=str(log_file))
+            t = time.perf_counter()
+            _, metrics = loop.fit(cfg, fit_cfg, params=params, device="cuda")
+            torch.cuda.synchronize()
+            fits.append((time.perf_counter() - t, metrics))
+        events = [json.loads(line)
+                  for line in log_file.read_text().splitlines()]
+        ckpt = port["checkpoint"].TrainCheckpointer(root / "ckpt")
+        kept = ckpt.all_steps()
+        # Where fit's time goes, on the host clock: one batch of 64
+        # decoded and preprocessed as fit's loader does (one thread), and
+        # one checkpoint (tower, head, both AdamW moments) written again.
+        entries = port["tree"].walk(root / "tree", "original")[:64]
+        t = time.perf_counter()
+        for e in entries:
+            port["preprocess"].load_and_preprocess(e.path)
+        out["decode_64_s"] = time.perf_counter() - t
+        state = ckpt.restore(map_location="cuda")
+        t = time.perf_counter()
+        port["checkpoint"].TrainCheckpointer(root / "timing").save(1, state)
+        out["checkpoint_save_s"] = time.perf_counter() - t
+        out["checkpoint_bytes"] = (root / "timing" / "1" / "state.pt"
+                                   ).stat().st_size
+    epochs = [e for e in events if e["event"] == "epoch"]
+    resume = [e for e in events if e["event"] == "resume"]
+    saves = [e["step"] for e in events if e["event"] == "checkpoint"]
+    steps = sum(e["steps"] for e in epochs)
+    losses = [e["mean_loss"] for e in epochs]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"epoch mean losses {losses}")
+    if len(resume) != 1 or resume[0]["step"] != 12 or \
+            resume[0]["total_steps"] != 18:
+        raise AssertionError(f"resume {resume}: expected step 12 of 18")
+    if saves != [5, 10, 12, 15, 18] or kept != [12, 15, 18]:
+        raise AssertionError(f"checkpoints saved {saves}, kept {kept}")
+    out.update(
+        steps=steps, epoch_mean_loss=losses,
+        last_metrics=[m for _, m in fits], resume=resume[0],
+        checkpoints_saved=saves, checkpoints_kept=kept,
+        fit_s_host_clock=[f for f, _ in fits],
+        epoch_images_per_s=[e["throughput"] for e in epochs],
+        steps_per_s=steps / sum(f for f, _ in fits),
+        images_per_s=64 * steps / sum(f for f, _ in fits))
+    log("training_path", **out)
+    return out
+
+
+def training_checks(torch, np, port, seed: int) -> dict:
+    """One training step's gradients at full ViT-B/32 width in f32, with
+    B1/B5 against the same step with the plain attention core, both on the
+    card. Tolerance per parameter tensor: max |difference| within 1e-3 of
+    its largest plain gradient (f32 sums in another order, carried back
+    through 12 blocks). Then the device time of one bf16 train step of 64
+    crops alone (CUDA events)."""
+    clip_model, T = port["clip_model"], port["train"]
+    cfg = clip_model.VIT_B_32
+    tcfg = T.TrainConfig(num_classes=8, compute_dtype="float32")
+    model, _ = T.init_state(cfg, tcfg, seed=seed, device="cuda")
+    rng = np.random.default_rng(seed + 11)
+    x = torch.from_numpy(rng.normal(size=(64, 224, 224, 3)).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 8, 64)).cuda()
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = T.loss_fn(model, x, y, tcfg)
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.clone()
+                             for k, p in model.named_parameters()}
+
+    loss_k, g_kernel = grads()
+    original = clip_model.clip_attention_core
+    clip_model.clip_attention_core = \
+        port["clip_attention"].clip_attention_core_plain
+    try:
+        loss_p, g_plain = grads()
+    finally:
+        clip_model.clip_attention_core = original
+    worst = max((g_kernel[k] - g_plain[k]).abs().max().item()
+                / max(g_plain[k].abs().max().item(), 1e-30) for k in g_plain)
+    if worst > 1e-3 or abs(loss_k - loss_p) > 1e-5 * abs(loss_p):
+        raise AssertionError(f"gradients differ: worst relative {worst}, "
+                             f"loss {loss_k} vs {loss_p}")
+    out = {"loss_kernel": loss_k, "loss_plain": loss_p,
+           "worst_max_abs_diff_over_max_abs_grad": worst, "tolerance": 1e-3,
+           "tensors": len(g_plain)}
+    del model, g_kernel, g_plain
+    bcfg = T.TrainConfig(num_classes=8)  # bf16 compute, as fit's default
+    model, opt = T.init_state(cfg, bcfg, seed=seed, device="cuda")
+    step = T.make_train_step(bcfg)
+    out["step_bf16_64_ms"] = cuda_ms(torch, lambda: step(model, opt, x, y),
+                                     reps=5, warmup=2)
+    log("training_checks", **out)
+    return out
+
+
+def segment_path(torch, np, port, seed: int):
+    """The segment stage at full SAM-B width (1024 px, embed 768, 12
+    blocks, global blocks 2/5/8/11, decoder 256), f32, from seeded weights:
+    ``run_auto_segment`` over 2 classes x 8 images of 300-500 px and one
+    file that does not decode, 4 images per encoder call, then
+    ``set_image`` and 3 ``predict`` calls on one image. Returns its numbers
+    (the encoder forwards it ran among them), the predictor and the image
+    it predicted on."""
+    import tempfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    M, seg = port["sam"], port["segment"]
+    t0 = time.perf_counter()
+    predictor = M.SamPredictor(M.params_from_jax(M.init_params(
+        M.SAM_VIT_B, seed)), M.SAM_VIT_B, device="cuda")
+    out = {"init_s": time.perf_counter() - t0, "batch_size": 4}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sam_") as tmp:
+        root = Path(tmp)
+        src = root / "dataset_cropped"
+        n = write_class_tree(np, src, seed + 12, per_class=8,
+                             sizes=(300, 500), classes=2)
+        (src / "original_images" / "class0" / "broken.png").write_bytes(
+            b"not an image")
+        files = n + 1
+        t = time.perf_counter()
+        res = seg.run_auto_segment(seg.SegmentConfig(
+            src_root=str(src), dst_root=str(root / "dataset_segmented")),
+            predictor, batch_size=4)
+        torch.cuda.synchronize()
+        out["auto_segment_s"] = time.perf_counter() - t
+        if (res.n_segmented, res.n_failed) != (n, 1):
+            raise AssertionError(f"run_auto_segment: {res}")
+        written = sorted((root / "dataset_segmented").rglob("*.png"))
+        sources = sorted(p for p in src.rglob("img_*.png"))
+        if [p.name for p in written] != [p.name for p in sources]:
+            raise AssertionError("segmented file names differ from sources")
+        for dst, srcp in zip(written, sources):
+            rgba = np.asarray(Image.open(dst))
+            rgb = np.asarray(Image.open(srcp).convert("RGB"))
+            if rgba.shape != rgb.shape[:2] + (4,) or \
+                    not np.array_equal(rgba[..., :3], rgb) or \
+                    not set(np.unique(rgba[..., 3])) <= {0, 255}:
+                raise AssertionError(f"bad RGBA output {dst.name}")
+        img = np.asarray(Image.open(sources[0]).convert("RGB"))
+    h, w = img.shape[:2]
+    t = time.perf_counter()
+    predictor.set_image(img)
+    torch.cuda.synchronize()
+    out["set_image_ms"] = (time.perf_counter() - t) * 1e3
+    predict_ms = []
+    for pts, lbl in (([[w / 2, h / 2]], [1]),
+                     ([[w / 4, h / 4], [w / 2, h / 2]], [0, 1]),
+                     ([[3 * w / 4, h / 3]], [1])):
+        t = time.perf_counter()
+        masks, scores = predictor.predict(np.array(pts), np.array(lbl))
+        predict_ms.append((time.perf_counter() - t) * 1e3)
+        if masks.shape != (3, h, w) or not np.isfinite(scores).all():
+            raise AssertionError(f"predict {masks.shape} {scores}")
+    out["predict_ms"] = predict_ms
+    chunks = -(-files // 4)  # every chunk holds a decodable image
+    out.update(files=files, n_segmented=res.n_segmented,
+               n_failed=res.n_failed, encoder_forwards=chunks + 1,
+               images_per_s=res.n_segmented / out["auto_segment_s"],
+               seconds=time.perf_counter() - t0)
+    log("segment_path", **out)
+    return out, predictor, img
+
+
+def segment_checks(torch, np, port, predictor, img, seed: int) -> dict:
+    """On the card: the encoder with B6 against the same forward with the
+    einsum attention, and ``segment_batch`` against per-image ``predict``
+    (iou atol 1e-5, masks agree above 0.999, as tests/test_sam.py)."""
+    M, E = port["sam"], port["sam_encoder"]
+    cfg = M.SAM_VIT_B.encoder
+    padded, _ = M.preprocess_image(img, cfg.img_size)
+    x = torch.from_numpy(padded[None]).cuda()
+    with torch.inference_mode():
+        flash = E.forward(predictor.params["encoder"], x, cfg)
+        einsum = E.forward(predictor.params["encoder"], x, cfg,
+                           use_flash=False)
+    enc_err = float((flash - einsum).abs().max())
+    # 1e-3: f32 sums in another order in every attention layer, carried
+    # through 12 blocks and the neck (the JAX package holds its 2-block
+    # grid-16 encoder to 1e-4, tests/test_flash_2d_bias.py).
+    if enc_err > 1e-3:
+        raise AssertionError(f"encoder B6 vs einsum: max abs err {enc_err}")
+    rng = np.random.default_rng(seed + 13)
+    imgs = [img, scene(np, rng, COLORS[3], 420, 360)]
+    t = time.perf_counter()
+    batched = predictor.segment_batch(imgs)
+    batch_ms = (time.perf_counter() - t) * 1e3
+    agree, iou_err = [], 0.0
+    for im, (mb, ib) in zip(imgs, batched):
+        h, w = im.shape[:2]
+        predictor.set_image(im)
+        ms, is_ = predictor.predict(np.array([[w / 2, h / 2]]),
+                                    np.array([1]))
+        iou_err = max(iou_err, float(np.abs(ib - is_).max()))
+        agree.append(float((mb == ms).mean()))
+    if iou_err > 1e-5 or min(agree) <= 0.999:
+        raise AssertionError(f"segment_batch vs predict: iou err {iou_err}, "
+                             f"mask agreement {agree}")
+    # Where a segment call's time goes: the encoder alone at batch 1 and 4
+    # and the decoder alone (CUDA events), and the host's resize of one
+    # image's 3 mask logits to its original size.
+    D = port["sam_decoder"]
+    with torch.inference_mode():
+        x4 = x.expand(4, -1, -1, -1).contiguous()
+        enc_ms = {f"encoder_batch{len(b)}_ms": cuda_ms(
+            torch, lambda b=b: E.forward(predictor.params["encoder"], b, cfg),
+            reps=3, warmup=1) for b in (x, x4)}
+        pts = torch.tensor([[[0.5, 0.5]]], device=x.device)
+        lbl = torch.ones(1, 1, device=x.device)
+        enc_ms["decoder_ms"] = cuda_ms(torch, lambda: D.decode_masks(
+            predictor.params["decoder"], flash, pts, lbl,
+            M.SAM_VIT_B.decoder), reps=5, warmup=1)
+        logits = D.decode_masks(predictor.params["decoder"], flash, pts, lbl,
+                                M.SAM_VIT_B.decoder)[0][0, 1:].cpu().numpy()
+    t = time.perf_counter()
+    M._masks_to_original(logits, (cfg.img_size, cfg.img_size),
+                         img.shape[:2], cfg.img_size)
+    enc_ms["masks_to_original_3_ms"] = (time.perf_counter() - t) * 1e3
+    out = {**enc_ms, "encoder_max_abs_err_b6_vs_einsum": enc_err,
+           "encoder_tolerance": 1e-3,
+           "encoder_output_max_abs": float(einsum.abs().max()),
+           "segment_batch_2_ms_host_clock": batch_ms,
+           "segment_batch_vs_predict_iou_max_abs_err": iou_err,
+           "segment_batch_vs_predict_mask_agreement": agree}
+    log("segment_checks", **out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -738,15 +1159,21 @@ def main(argv=None) -> int:
         from retrieval_based_object_detection_tpu_torch.models.detector import (
             saliency,
         )
+        from retrieval_based_object_detection_tpu_torch.models.sam import (
+            decoder as sam_decoder, encoder as sam_encoder, model as sam,
+        )
         from retrieval_based_object_detection_tpu_torch.ops import (
-            clip_attention as CA, cuda_lib, image, int4_scan as S4,
-            int8_scan as S, medoid as M,
+            attention as A, clip_attention as CA, cuda_lib, image,
+            int4_scan as S4, int8_scan as S, medoid as M,
         )
         from retrieval_based_object_detection_tpu_torch.pipelines import (
-            delegates, embed, experiments, serve,
+            delegates, embed, experiments, segment, serve,
+        )
+        from retrieval_based_object_detection_tpu_torch.train import (
+            loop as train_loop, train,
         )
         from retrieval_based_object_detection_tpu_torch.utils import (
-            loader, tree,
+            checkpoint, loader, tree,
         )
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e}); run "
@@ -761,7 +1188,10 @@ def main(argv=None) -> int:
             "embed": embed, "serve": serve, "saliency": saliency,
             "image": image, "int4_scan": S4, "medoid": M,
             "experiments": experiments, "search": search, "tree": tree,
-            "loader": loader}
+            "loader": loader, "clip_attention": CA, "train": train,
+            "train_loop": train_loop, "checkpoint": checkpoint, "sam": sam,
+            "sam_encoder": sam_encoder, "sam_decoder": sam_decoder,
+            "segment": segment}
 
     # Full f32 on the card: no TF32 in matmuls or convolutions.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -776,12 +1206,15 @@ def main(argv=None) -> int:
         torch=torch.__version__, cuda=torch.version.cuda)
 
     t = time.perf_counter()
-    libraries = [CA.KERNEL, S.KERNEL, S4.KERNEL, M.KERNEL]
+    libraries = [CA.KERNEL, S.KERNEL, S4.KERNEL, M.KERNEL, A.KERNEL]
     cuda_lib.build_all(libraries)
     log("build", seconds=time.perf_counter() - t,
         libraries=[lib.path.name for lib in libraries])
 
     attn = attention_phase(torch, F, CA, args.seed)
+    attn_bwd = attention_bwd_phase(torch, F, CA, args.seed)
+    flash = flash_phase(torch, F, A, args.seed)
+    torch.cuda.empty_cache()
     scan = scan_phase(torch, S, args.seed)
     torch.cuda.empty_cache()
     int4 = int4_phase(torch, S4, args.seed)
@@ -791,21 +1224,25 @@ def main(argv=None) -> int:
 
     def zero_counts():
         for lib in libraries:
-            lib.launches = 0
+            lib.reset_counts()
 
     def read_counts():
-        return {"attn": CA.KERNEL.launches, "scan": S.KERNEL.launches,
-                "int4": S4.KERNEL.launches, "medoid": M.KERNEL.launches}
+        return {"B1": CA.KERNEL.counts["clip_attention_fwd"],
+                "B2": S.KERNEL.launches, "B3": S4.KERNEL.launches,
+                "B4": M.KERNEL.launches,
+                "B5": CA.KERNEL.counts["clip_attention_bwd"],
+                "B6": A.KERNEL.counts[A.B6], "B7": A.KERNEL.counts[A.B7]}
 
+    by_path = {}
     # The serving path: launch counts from here to its end only.
     zero_counts()
     serving, detector, params = serving_phase(torch, np, port, args.seed)
     _, big, queries, picks = gallery_phase(torch, np, port, args.seed)
-    launches = read_counts()
+    by_path["serving"] = read_counts()
     encodes = serving["embed_batches"] + serving["dispatches"]
-    if launches["attn"] < 12 * encodes or launches["scan"] < 1:
-        raise AssertionError(f"kernel launches {launches} for {encodes} "
-                             "encodes and the int8 searches")
+    if by_path["serving"]["B1"] < 12 * encodes or by_path["serving"]["B2"] < 1:
+        raise AssertionError(f"kernel launches {by_path['serving']} for "
+                             f"{encodes} encodes and the int8 searches")
     breakdown_phase(torch, np, port, detector, args.seed)
     del detector
 
@@ -813,44 +1250,86 @@ def main(argv=None) -> int:
     zero_counts()
     offline = experiment_phase(torch, np, port, params, args.seed)
     gallery_int4_phase(torch, np, port, big, queries, picks)
-    offline_launches = read_counts()
+    by_path["offline"] = launches = read_counts()
     encodes = offline["encode_batches"] + offline["timing_encodes"]
-    if offline_launches["attn"] != 12 * encodes or \
-            offline_launches["medoid"] != offline["groups_over_threshold"] \
-            or offline_launches["int4"] < 1:
+    if launches["B1"] != 12 * encodes or \
+            launches["B4"] != offline["groups_over_threshold"] \
+            or launches["B3"] < 1:
         raise AssertionError(
-            f"offline kernel launches {offline_launches} for {encodes} "
-            "encodes, "
+            f"offline kernel launches {launches} for {encodes} encodes, "
             f"{offline['groups_over_threshold']} large groups and the int4 "
             "searches")
     del big
-    by_path = {k: {"serving": launches[k], "offline": offline_launches[k]}
-               for k in launches}
+    torch.cuda.empty_cache()
 
-    def row(name, source, replaces, key, res, shape, **extra):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces,
-                "launches": launches[key] + offline_launches[key],
-                "launches_by_path": by_path[key],
+    # The training path: launch counts from here to its end only.
+    zero_counts()
+    training = training_path(torch, np, port, args.seed)
+    by_path["training"] = launches = read_counts()
+    if launches["B1"] != 12 * training["steps"] or \
+            launches["B5"] != 12 * training["steps"]:
+        raise AssertionError(f"training launches {launches} for "
+                             f"{training['steps']} steps")
+    training_checks(torch, np, port, args.seed)
+    torch.cuda.empty_cache()
+
+    # The segment path: launch counts from here to its end only.
+    zero_counts()
+    seg_out, predictor, img = segment_path(torch, np, port, args.seed)
+    by_path["segment"] = launches = read_counts()
+    if launches["B6"] != 12 * seg_out["encoder_forwards"]:
+        raise AssertionError(f"segment launches {launches} for "
+                             f"{seg_out['encoder_forwards']} encoder "
+                             "forwards")
+    segment_checks(torch, np, port, predictor, img, args.seed)
+    del predictor
+
+    def row(name, kid, source, replaces, res, shape, **extra):
+        paths = {path: counts[kid] for path, counts in by_path.items()}
+        return {"name": name, "id": kid, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(paths.values()),
+                "launches_by_path": paths,
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": res["library_ms"],
                 "shape": shape, **extra}
 
-    bf16 = attn["bfloat16"]
-    f32 = attn["float32"]
+    def f32(res):
+        return {k: res["float32"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+
     kernels = [
-        row("clip_attention_fwd", ATTN_SOURCE, ATTN_REPLACES, "attn", bf16,
-            [64, 50, 2304], dtype="bfloat16",
-            float32={k: f32[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by",
-                                         "library_ms")}),
-        row("int8_scan", SCAN_SOURCE, SCAN_REPLACES, "scan", scan,
+        row("clip_attention_fwd", "B1", ATTN_SOURCE, ATTN_REPLACES,
+            attn["bfloat16"], [64, 50, 2304], dtype="bfloat16",
+            float32=f32(attn)),
+        row("int8_scan", "B2", SCAN_SOURCE, SCAN_REPLACES, scan,
             [16, 1 << 20, 512]),
-        row("int4_scan", INT4_SOURCE, INT4_REPLACES, "int4", int4,
+        row("int4_scan", "B3", INT4_SOURCE, INT4_REPLACES, int4,
             [16, 1 << 20, 512]),
-        row("medoid_sums", MEDOID_SOURCE, MEDOID_REPLACES, "medoid", med,
+        row("medoid_sums", "B4", MEDOID_SOURCE, MEDOID_REPLACES, med,
             [12_000, 512]),
+        row("clip_attention_bwd", "B5", ATTN_SOURCE, BWD_REPLACES,
+            attn_bwd["bfloat16"], [64, 50, 2304], dtype="bfloat16",
+            float32=f32(attn_bwd)),
+        row("flash_attention_2d_bias_fwd", "B6", FLASH_SOURCE,
+            FLASH2D_REPLACES, flash["b6_global"]["float32"],
+            flash["b6_global"]["shape"], dtype="float32",
+            bfloat16={k: flash["b6_global"]["bfloat16"][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            windowed={"shape": flash["b6_windowed"]["shape"],
+                      **{dt: {k: flash["b6_windowed"][dt][k] for k in (
+                          "max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms")}
+                         for dt in ("float32", "bfloat16")}}),
+        row("flash_attention_fwd", "B7", FLASH_SOURCE, FLASH_REPLACES,
+            flash["b7"]["float32"], flash["b7"]["shape"], dtype="float32",
+            bfloat16={k: flash["b7"]["bfloat16"][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            note="no caller on any path in either package; held against "
+                 "its plain version only"),
     ]
     log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,13 +8,20 @@ MLPs → ln_post on the CLS token → projection to the embedding dimension.
 Weights keep the JAX package's layout (``x @ w`` for every dense layer, the
 patch kernel HWIO), so ``params_from_jax`` carries a JAX ``init_params``
 pytree across by slicing its stacked ``[L, ...]`` blocks. Images are NHWC,
-as in the JAX package. The tower computes in its parameters' dtype (f32,
-or bf16 after ``.to(torch.bfloat16)``); LayerNorm statistics, the
-attention softmax and the final projection are f32 either way.
+as in the JAX package. Parameters stay f32; the tower computes in its
+``compute_dtype`` (f32, or bf16) and casts where the JAX package's
+``encode_image`` casts: the images, patch kernel, class and positional
+embeddings, every block parameter and ``proj`` go to the compute dtype at
+use, while ``ln_pre``/``ln_post`` keep their f32 scale and bias. LayerNorm
+statistics, the attention softmax and the final projection's sums are f32
+either way. Gradients reach the f32 parameters through those casts, so one
+tower serves inference and bf16 training on f32 master weights; with
+``remat`` each block is recomputed in the backward
+(``torch.utils.checkpoint``).
 
 The attention core runs ``ops.clip_attention.clip_attention_core``: the
-hand-written kernel for every CUDA tensor (f32 and bf16), its plain
-version on the CPU.
+hand-written forward (and, under autograd, backward) for every CUDA tensor
+(f32 and bf16), the plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from retrieval_based_object_detection_tpu_torch.ops.clip_attention import (
@@ -157,27 +165,34 @@ class ResidualAttentionBlock(nn.Module):
             "w_proj": (d_mlp, width), "b_proj": (width,),
         }
         for k, shape in shapes.items():
-            setattr(self, k, nn.Parameter(torch.zeros(shape),
-                                          requires_grad=False))
+            setattr(self, k, nn.Parameter(torch.zeros(shape)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = layer_norm(x, self.ln_1_scale, self.ln_1_bias)
-        qkv = _dense(h, self.w_qkv, self.b_qkv)            # [B, T, 3W]
+        """One block in ``x``'s dtype: every parameter is cast to it at
+        use, as the JAX tower casts its stacked blocks."""
+        p = {k: v.to(x.dtype) for k, v in self.named_parameters()}
+        h = layer_norm(x, p["ln_1_scale"], p["ln_1_bias"])
+        qkv = _dense(h, p["w_qkv"], p["b_qkv"])            # [B, T, 3W]
         a = clip_attention_core(qkv, heads=self.heads)      # [B, T, W]
-        x = x + _dense(a, self.w_out, self.b_out)
-        h = layer_norm(x, self.ln_2_scale, self.ln_2_bias)
-        h = _dense(h, self.w_fc, self.b_fc)
+        x = x + _dense(a, p["w_out"], p["b_out"])
+        h = layer_norm(x, p["ln_2_scale"], p["ln_2_bias"])
+        h = _dense(h, p["w_fc"], p["b_fc"])
         h = quick_gelu(h.to(torch.float32)).to(x.dtype)
-        return x + _dense(h, self.w_proj, self.b_proj)
+        return x + _dense(h, p["w_proj"], p["b_proj"])
 
 
 class CLIPVisionTower(nn.Module):
     """The image tower: NHWC images → [B, embed_dim] f32 embeddings
-    (un-normalised, matching ``model.encode_image`` of the reference)."""
+    (un-normalised, matching ``model.encode_image`` of the reference),
+    computed in ``compute_dtype`` from f32 parameters."""
 
-    def __init__(self, config: CLIPVisionConfig = VIT_B_32):
+    def __init__(self, config: CLIPVisionConfig = VIT_B_32,
+                 compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.config = config
+        self.compute_dtype = compute_dtype
+        self.remat = remat
         c = config
         shapes = {
             "conv_kernel": (c.patch_size, c.patch_size, 3, c.width),
@@ -188,15 +203,10 @@ class CLIPVisionTower(nn.Module):
             "proj": (c.width, c.embed_dim),
         }
         for k, shape in shapes.items():
-            setattr(self, k, nn.Parameter(torch.zeros(shape),
-                                          requires_grad=False))
+            setattr(self, k, nn.Parameter(torch.zeros(shape)))
         self.blocks = nn.ModuleList(
             ResidualAttentionBlock(c.width, c.heads, c.mlp_ratio)
             for _ in range(c.layers))
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.proj.dtype
 
     @property
     def device(self) -> torch.device:
@@ -204,42 +214,47 @@ class CLIPVisionTower(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         c = self.config
-        dt = self.dtype
-        x = images.to(device=self.device, dtype=dt)
+        cd = self.compute_dtype
+        x = images.to(device=self.device, dtype=cd)
         B = x.shape[0]
         p, g = c.patch_size, c.grid
         # Patchify: the stride-p VALID conv (NHWC/HWIO) as one matmul over
         # [p, p, 3]-ordered patches — the same product, and no cuDNN.
         x = x[:, : g * p, : g * p]
         x = x.reshape(B, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5)
-        x = x.reshape(B, g * g, p * p * 3) @ self.conv_kernel.reshape(
+        x = x.reshape(B, g * g, p * p * 3) @ self.conv_kernel.to(cd).reshape(
             p * p * 3, c.width)
-        cls = self.class_embedding.expand(B, 1, c.width)
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding[None]
+        cls = self.class_embedding.to(cd).expand(B, 1, c.width)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(cd)[None]
         x = layer_norm(x, self.ln_pre_scale, self.ln_pre_bias)
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = (torch.utils.checkpoint.checkpoint(block, x,
+                                                   use_reentrant=False)
+                 if remat else block(x))
         cls_out = layer_norm(x[:, 0, :], self.ln_post_scale,
                              self.ln_post_bias)
         # Products of values in the compute dtype are exact in f32: this is
         # the f32-accumulated projection of the JAX tower.
-        return cls_out.to(torch.float32) @ self.proj.to(torch.float32)
+        return cls_out.to(torch.float32) @ self.proj.to(cd).to(torch.float32)
 
 
 def build_tower(params: dict[str, Any], config: CLIPVisionConfig = VIT_B_32,
                 dtype: torch.dtype = torch.float32,
                 device: str | torch.device = "cuda") -> CLIPVisionTower:
-    """A tower on ``device`` in ``dtype`` from a state dict (as
-    ``params_from_jax`` returns) or a JAX-layout numpy pytree."""
+    """A frozen tower on ``device`` computing in ``dtype``, its f32
+    parameters from a state dict (as ``params_from_jax`` returns) or a
+    JAX-layout numpy pytree."""
     if "blocks" in params:
         params = params_from_jax(params)
-    tower = CLIPVisionTower(config)
+    tower = CLIPVisionTower(config, compute_dtype=dtype)
     tower.load_state_dict(params)
-    return tower.to(device=resolve_device(device), dtype=dtype).eval()
+    tower.requires_grad_(False)
+    return tower.to(device=resolve_device(device)).eval()
 
 
 @torch.inference_mode()
 def encode_image(tower: CLIPVisionTower, images: torch.Tensor) -> torch.Tensor:
     """[B, H, W, 3] preprocessed NHWC images → [B, embed_dim] f32
-    embeddings, computed in the tower's dtype on its device."""
+    embeddings, computed in the tower's compute dtype on its device."""
     return tower(images)

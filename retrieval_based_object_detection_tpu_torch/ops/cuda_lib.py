@@ -46,7 +46,9 @@ class CudaLibrary:
     ``functions`` maps each exported C function to its ctypes argument
     types (pointers and the stream as ``c_void_p``: a bare Python int
     would be passed as a 32-bit int and cut the pointer). ``launches``
-    counts successful launches through :meth:`launch` and nothing else.
+    counts successful launches through :meth:`launch` and nothing else;
+    ``counts`` splits them by exported function, for sources that hold
+    more than one kernel. :meth:`reset_counts` zeroes both.
     """
 
     def __init__(self, name: str, functions: dict[str, list]):
@@ -54,6 +56,7 @@ class CudaLibrary:
         self.source = CSRC / f"{name}.cu"
         self.functions = functions
         self.launches = 0
+        self.counts = dict.fromkeys(functions, 0)
         self._lib: ctypes.CDLL | None = None
         self._lock = threading.Lock()
 
@@ -111,6 +114,12 @@ class CudaLibrary:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc}: {msg}")
         with self._lock:
             self.launches += 1
+            self.counts[fn] += 1
+
+    def reset_counts(self) -> None:
+        with self._lock:
+            self.launches = 0
+            self.counts = dict.fromkeys(self.functions, 0)
 
 
 def build_all(libraries: list[CudaLibrary]) -> None:

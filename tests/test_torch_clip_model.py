@@ -6,6 +6,7 @@ tower runs its einsum attention path; the port's CPU path runs the plain
 attention core (the kernel's reference).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,3 +93,54 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tm.build_tower(tm.init_params(tm.CLIPVisionConfig(**TINY)),
                        tm.CLIPVisionConfig(**TINY))
+
+
+def _non_unit_ln_params(jcfg, seed):
+    """Seeded JAX params with LayerNorm scales and biases away from 1 and
+    0, as after fine-tuning."""
+    p = {k: ({kk: np.asarray(vv) for kk, vv in v.items()}
+             if isinstance(v, dict) else np.asarray(v))
+         for k, v in jm.init_params(jcfg, seed=seed).items()}
+    rng = np.random.default_rng(seed + 100)
+    for tree, keys in ((p, ("ln_pre", "ln_post")),
+                       (p["blocks"], ("ln_1", "ln_2"))):
+        for k in keys:
+            shape = tree[k + "_scale"].shape
+            tree[k + "_scale"] = (1 + 0.5 * rng.normal(size=shape)
+                                  ).astype(np.float32)
+            tree[k + "_bias"] = (0.2 * rng.normal(size=shape)
+                                 ).astype(np.float32)
+    return p
+
+
+@pytest.mark.parametrize("layers,rel_tol", [(0, 1e-6), (2, 1e-2)])
+def test_bf16_encode_tracks_jax_bf16(layers, rel_tol):
+    """The bf16 tower casts where JAX's ``encode_image`` casts: f32
+    ``ln_pre``/``ln_post`` scale and bias, everything else in bf16 at use.
+    With no blocks the two agree to 1e-6 of the largest |embedding| (f32
+    parameters rounded to bf16, as before this casting, miss by ~6e-3).
+    With blocks, 1e-2: torch's bf16 ``addmm`` rounds the MLP's fc output to
+    bf16 before the GELU where JAX applies the GELU to the f32 sum, one
+    bf16 rounding (2^-9) per block feeding the residual stream."""
+    cfg = dict(MULTI, layers=layers)
+    jcfg = jm.CLIPVisionConfig(**cfg)
+    p = _non_unit_ln_params(jcfg, seed=3)
+    images = np.random.default_rng(4).normal(
+        size=(4, 64, 64, 3)).astype(np.float32)
+    want = np.asarray(jm.encode_image(
+        jax.tree.map(jnp.asarray, p), jnp.asarray(images), jcfg,
+        jnp.bfloat16, fused_attention=False))
+    tower = tm.build_tower(p, tm.CLIPVisionConfig(**cfg),
+                           dtype=torch.bfloat16, device="cpu")
+    assert all(v.dtype == torch.float32 for v in tower.parameters())
+    got = tm.encode_image(tower, torch.from_numpy(images)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=rel_tol * np.abs(want).max())
+
+
+def test_build_tower_is_frozen_and_the_training_tower_is_not():
+    cfg = tm.CLIPVisionConfig(**TINY)
+    frozen = tm.build_tower(tm.init_params(cfg), cfg, device="cpu")
+    assert not any(p.requires_grad for p in frozen.parameters())
+    assert all(p.requires_grad
+               for p in tm.CLIPVisionTower(cfg).parameters())

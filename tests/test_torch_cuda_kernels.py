@@ -10,6 +10,7 @@ port's dependencies they run without the JAX test harness:
 import pytest
 import torch
 
+from retrieval_based_object_detection_tpu_torch.ops import attention as A
 from retrieval_based_object_detection_tpu_torch.ops import clip_attention as CA
 from retrieval_based_object_detection_tpu_torch.ops import int4_scan as S4
 from retrieval_based_object_detection_tpu_torch.ops import int8_scan as S
@@ -57,6 +58,131 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         CA.clip_attention_core(torch.zeros(1, 400, 3 * 64,
                                            device=cuda_device), heads=1)
+
+
+# B5 against the plain backward. f32: the JAX package's custom-VJP tolerance
+# (tests/test_clip_fused_attention.py), for the same f32 sums in another
+# order. bf16: both sides compute in f32 and round once at the store, so they
+# differ by at most one bf16 ulp (2^-7 relative) where the f32 sums round to
+# neighbouring values.
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-4, 1e-4),
+                                             (torch.bfloat16, 1e-3, 2 ** -7)])
+@pytest.mark.parametrize("B,T,heads,D", [(8, 50, 12, 64), (3, 17, 4, 32),
+                                         (2, 77, 8, 64)])
+def test_attention_backward_kernel_matches_plain(cuda_device, dtype, atol,
+                                                 rtol, B, T, heads, D):
+    g = torch.Generator(device="cpu").manual_seed(B * T + 1)
+    qkv = torch.randn(B, T, 3 * heads * D, generator=g).to(cuda_device, dtype)
+    dout = torch.randn(B, T, heads * D, generator=g).to(cuda_device, dtype)
+    before = CA.KERNEL.counts["clip_attention_bwd"]
+    got = CA.clip_attention_core_bwd(qkv, dout, heads)
+    torch.cuda.synchronize()
+    assert CA.KERNEL.counts["clip_attention_bwd"] == before + 1
+    want = CA.clip_attention_core_bwd_plain(qkv, dout, heads)
+    assert got.dtype == dtype and got.shape == qkv.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_attention_autograd_runs_b1_then_b5(cuda_device):
+    """Autograd through the core: one B1 launch forward, one B5 launch
+    backward, and the gradient is B5's own result."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    qkv = torch.randn(4, 50, 3 * 128, generator=g).to(cuda_device)
+    dout = torch.randn(4, 50, 128, generator=g).to(cuda_device)
+    fwd, bwd = (CA.KERNEL.counts[k] for k in ("clip_attention_fwd",
+                                               "clip_attention_bwd"))
+    x = qkv.clone().requires_grad_(True)
+    out = CA.clip_attention_core(x, heads=2)
+    grad, = torch.autograd.grad(out, x, dout)
+    torch.cuda.synchronize()
+    assert CA.KERNEL.counts["clip_attention_fwd"] == fwd + 1
+    assert CA.KERNEL.counts["clip_attention_bwd"] == bwd + 1
+    assert torch.equal(out.detach(), CA.clip_attention_core(qkv, 2))
+    assert torch.equal(grad, CA.clip_attention_core_bwd(qkv, dout, 2))
+
+
+def test_attention_backward_rejects_what_it_does_not_take(cuda_device):
+    qkv = torch.zeros(2, 50, 3 * 64, device=cuda_device)
+    dout = torch.zeros(2, 50, 64, device=cuda_device)
+    with pytest.raises(TypeError):
+        CA.clip_attention_core_bwd(qkv.half(), dout.half(), heads=1)
+    with pytest.raises(ValueError, match="dout"):
+        CA.clip_attention_core_bwd(qkv, dout.bfloat16(), heads=1)
+    with pytest.raises(ValueError, match="shared memory"):
+        CA.clip_attention_core_bwd(
+            torch.zeros(1, 120, 3 * 64, device=cuda_device),
+            torch.zeros(1, 120, 64, device=cuda_device), heads=1)
+
+
+def _qkv_bias(device, dtype, B, H, gh, gw, D, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    T = gh * gw
+    q, k, v = (torch.randn(B, H, T, D, generator=g).to(device, dtype)
+               for _ in range(3))
+    bh = torch.randn(B, H, T, gh, generator=g).to(device)
+    bw = torch.randn(B, H, T, gw, generator=g).to(device)
+    return q, k, v, bh, bw
+
+
+# B6/B7 against the plain einsum oracle. f32: the same f32 sums in another
+# order over up to 4,096 keys. bf16: the kernel rounds each unnormalised p to
+# bf16 before the PV product (as the Pallas kernel does) where the oracle
+# keeps p in f32 — at most 2^-9 of the largest |v| (about 4) — plus one bf16
+# ulp of the output: B1's bf16 tolerance.
+FLASH_TOLS = [(torch.float32, 1e-4, 1e-5), (torch.bfloat16, 1e-2, 2 ** -7)]
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", FLASH_TOLS)
+@pytest.mark.parametrize("B,H,gh,gw,D", [(4, 3, 14, 14, 64), (2, 2, 7, 9, 64),
+                                         (1, 2, 64, 64, 64),
+                                         (2, 1, 7, 9, 16), (1, 2, 14, 14, 96)])
+def test_flash_2d_bias_kernel_matches_plain(cuda_device, dtype, atol, rtol,
+                                            B, H, gh, gw, D):
+    q, k, v, bh, bw = _qkv_bias(cuda_device, dtype, B, H, gh, gw, D,
+                                seed=gh * gw + D)
+    before = A.KERNEL.counts[A.B6]
+    got = A.flash_attention_2d_bias(q, k, v, bh, bw, gh, gw)
+    torch.cuda.synchronize()
+    assert A.KERNEL.counts[A.B6] == before + 1
+    want = A.flash_attention_2d_bias_plain(q, k, v, bh, bw, gh, gw)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", FLASH_TOLS)
+@pytest.mark.parametrize("B,H,T,D", [(2, 3, 1000, 64), (1, 2, 77, 40),
+                                     (1, 1, 4096, 128)])
+def test_flash_kernel_matches_plain(cuda_device, dtype, atol, rtol, B, H, T,
+                                    D):
+    g = torch.Generator(device="cpu").manual_seed(T + D)
+    q, k, v = (torch.randn(B, H, T, D, generator=g).to(cuda_device, dtype)
+               for _ in range(3))
+    before = A.KERNEL.counts[A.B7]
+    got = A.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert A.KERNEL.counts[A.B7] == before + 1
+    torch.testing.assert_close(got.float(),
+                               A.flash_attention_plain(q, k, v).float(),
+                               atol=atol, rtol=rtol)
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
+    q, k, v, bh, bw = _qkv_bias(cuda_device, torch.float32, 1, 1, 4, 4, 64, 0)
+    with pytest.raises(TypeError):
+        A.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        A.flash_attention_2d_bias(q, k, v, bh.bfloat16(), bw, 4, 4)
+    with pytest.raises(ValueError, match="head dim"):
+        A.flash_attention(q[..., :20].contiguous(), k[..., :20].contiguous(),
+                          v[..., :20].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        A.flash_attention(torch.cat([q, q], dim=-1)[..., ::2], k, v)
+    q, k, v, bh, bw = _qkv_bias(cuda_device, torch.float32, 1, 1, 1, 1000,
+                                64, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        A.flash_attention_2d_bias(q, k, v, bh, bw, 1, 1000)
 
 
 @pytest.mark.parametrize("Q,N,D", [(16, 100_003, 512), (1, 129, 512),

@@ -27,10 +27,13 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
-    assert len(mods) >= 20, mods
+    assert len(mods) >= 30, mods
     p = "retrieval_based_object_detection_tpu_torch."
     for m in ("utils.tree", "utils.loader", "ops.medoid", "ops.int4_scan",
-              "pipelines.experiments"):
+              "pipelines.experiments", "ops.attention", "utils.logging",
+              "utils.checkpoint", "train.train", "train.loop",
+              "models.sam.encoder", "models.sam.decoder", "models.sam.model",
+              "pipelines.segment"):
         assert p + m in mods
     code = (
         "import importlib, sys\n"
