@@ -5,7 +5,8 @@ segment paths on one NVIDIA GPU.
     python3 chip_smoke.py [--seed 0]
 
 Builds the port's CUDA kernels from ``csrc/`` (one nvcc per source, all
-started together) and holds each against its plain PyTorch version at the
+started together), counts the tensor-core instructions of each flash
+kernel, and holds each kernel against its plain PyTorch version at the
 shapes its path gives it. Then it drives four paths through the calls a
 user makes, at full width from seeded weights:
 
@@ -24,7 +25,8 @@ user makes, at full width from seeded weights:
   against the plain attention core on the card;
 - segment: SAM-B (1024 px) ``run_auto_segment`` over a small tree with a
   file that does not decode, then ``set_image`` and ``predict``; the
-  encoder is held against its einsum attention and ``segment_batch``
+  encoder is held against its einsum attention (f32 and bf16) and
+  ``segment_batch``
   against per-image ``predict`` on the card.
 
 Kernel launch counters are zeroed just before each path and read just
@@ -51,7 +53,11 @@ import time
 import urllib.request
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+# Dense peaks (NVIDIA data sheet). f32: the card's fastest f32-accurate
+# product, 3xTF32 on the tensor cores (three TF32 products at 495 TFLOP/s
+# for one f32 product); f32 on the CUDA cores runs at 67 TFLOP/s.
+F32_CUDA_CORE_OPS = 67e12
+PEAK_OPS = {"bfloat16": 989e12, "float32": 495e12 / 3, "int8": 1979e12}
 
 ATTN_SOURCE = "retrieval_based_object_detection_tpu_torch/csrc/clip_attention.cu"
 ATTN_REPLACES = "retrieval_based_object_detection_tpu/ops/clip_attention.py:30"
@@ -103,6 +109,35 @@ def bound_ms(n_bytes: float, n_ops: float, op_type: str) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS[op_type] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hmma_phase(lib_path) -> dict:
+    """Tensor-core instructions (HMMA) in each flash kernel of the built
+    attention library, from ``cuobjdump -sass``; every instantiation must
+    have some."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            kind = re.search(r"flash_fwdI(13__nv_bfloat16|f)Li(\d+)ELb([01])E",
+                             fn.group(1))
+            name = None if kind is None else "flash_fwd<{}, {}, {}>".format(
+                "bf16" if kind.group(1) != "f" else "f32", kind.group(2),
+                "bias" if kind.group(3) == "1" else "no bias")
+            if name:
+                counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    if len(counts) != 12 or not all(counts.values()):
+        raise AssertionError(f"HMMA counts per flash kernel: {counts}")
+    log("flash_hmma", library=lib_path.name, hmma=counts)
+    return counts
 
 
 def attention_phase(torch, F, CA, seed: int) -> dict:
@@ -1078,8 +1113,10 @@ def segment_path(torch, np, port, seed: int):
 
 def segment_checks(torch, np, port, predictor, img, seed: int) -> dict:
     """On the card: the encoder with B6 against the same forward with the
-    einsum attention, and ``segment_batch`` against per-image ``predict``
-    (iou atol 1e-5, masks agree above 0.999, as tests/test_sam.py)."""
+    einsum attention, in f32 and in bf16, and ``segment_batch`` against
+    per-image ``predict`` (iou atol 1e-5, masks agree above 0.999, as
+    tests/test_sam.py); then the encoder alone at batch 1 and 4 in both
+    dtypes."""
     M, E = port["sam"], port["sam_encoder"]
     cfg = M.SAM_VIT_B.encoder
     padded, _ = M.preprocess_image(img, cfg.img_size)
@@ -1094,6 +1131,34 @@ def segment_checks(torch, np, port, predictor, img, seed: int) -> dict:
     # grid-16 encoder to 1e-4, tests/test_flash_2d_bias.py).
     if enc_err > 1e-3:
         raise AssertionError(f"encoder B6 vs einsum: max abs err {enc_err}")
+    # bf16 (compute_dtype=torch.bfloat16): B6 against the einsum path. Both
+    # round at every layer (the kernel its unnormalised p, the einsum path
+    # the normalised one), so they differ by bf16 noise, not by an error
+    # bound. Tolerance, relative L2 over the whole output: B6's bf16 encoder
+    # within 3e-2 of the einsum bf16 encoder, and no further from the f32
+    # einsum encoder than 1.5x the einsum bf16 encoder's own distance to it.
+    with torch.inference_mode():
+        flash16 = E.forward(predictor.params["encoder"], x, cfg,
+                            torch.bfloat16).float()
+        einsum16 = E.forward(predictor.params["encoder"], x, cfg,
+                             torch.bfloat16, use_flash=False).float()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    bf16_out = {"encoder_bf16_rel_l2_b6_vs_einsum": rel(flash16, einsum16),
+                "encoder_bf16_rel_l2_b6_vs_f32": rel(flash16, einsum),
+                "encoder_bf16_rel_l2_einsum_vs_f32": rel(einsum16, einsum),
+                "encoder_bf16_max_abs_err_b6_vs_einsum": float(
+                    (flash16 - einsum16).abs().max()),
+                "encoder_bf16_tolerance": {"rel_l2_vs_einsum": 3e-2,
+                                           "vs_f32_factor": 1.5}}
+    if not bool(torch.isfinite(flash16).all()) or \
+            bf16_out["encoder_bf16_rel_l2_b6_vs_einsum"] > 3e-2 or \
+            bf16_out["encoder_bf16_rel_l2_b6_vs_f32"] > \
+            1.5 * bf16_out["encoder_bf16_rel_l2_einsum_vs_f32"]:
+        raise AssertionError(f"bf16 encoder B6 vs einsum: {bf16_out}")
+    del flash16, einsum16
     rng = np.random.default_rng(seed + 13)
     imgs = [img, scene(np, rng, COLORS[3], 420, 360)]
     t = time.perf_counter()
@@ -1119,6 +1184,10 @@ def segment_checks(torch, np, port, predictor, img, seed: int) -> dict:
         enc_ms = {f"encoder_batch{len(b)}_ms": cuda_ms(
             torch, lambda b=b: E.forward(predictor.params["encoder"], b, cfg),
             reps=3, warmup=1) for b in (x, x4)}
+        enc_ms.update({f"encoder_bf16_batch{len(b)}_ms": cuda_ms(
+            torch, lambda b=b: E.forward(predictor.params["encoder"], b, cfg,
+                                         torch.bfloat16),
+            reps=3, warmup=1) for b in (x, x4)})
         pts = torch.tensor([[[0.5, 0.5]]], device=x.device)
         lbl = torch.ones(1, 1, device=x.device)
         enc_ms["decoder_ms"] = cuda_ms(torch, lambda: D.decode_masks(
@@ -1130,7 +1199,7 @@ def segment_checks(torch, np, port, predictor, img, seed: int) -> dict:
     M._masks_to_original(logits, (cfg.img_size, cfg.img_size),
                          img.shape[:2], cfg.img_size)
     enc_ms["masks_to_original_3_ms"] = (time.perf_counter() - t) * 1e3
-    out = {**enc_ms, "encoder_max_abs_err_b6_vs_einsum": enc_err,
+    out = {**enc_ms, **bf16_out, "encoder_max_abs_err_b6_vs_einsum": enc_err,
            "encoder_tolerance": 1e-3,
            "encoder_output_max_abs": float(einsum.abs().max()),
            "segment_batch_2_ms_host_clock": batch_ms,
@@ -1203,13 +1272,16 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), nvidia_smi=smi,
-        torch=torch.__version__, cuda=torch.version.cuda)
+        torch=torch.__version__, cuda=torch.version.cuda,
+        peak_ops=PEAK_OPS, f32_cuda_core_ops=F32_CUDA_CORE_OPS,
+        hbm_bytes_per_s=HBM_BYTES_PER_S)
 
     t = time.perf_counter()
     libraries = [CA.KERNEL, S.KERNEL, S4.KERNEL, M.KERNEL, A.KERNEL]
     cuda_lib.build_all(libraries)
     log("build", seconds=time.perf_counter() - t,
         libraries=[lib.path.name for lib in libraries])
+    hmma_phase(A.KERNEL.path)
 
     attn = attention_phase(torch, F, CA, args.seed)
     attn_bwd = attention_bwd_phase(torch, F, CA, args.seed)

@@ -37,6 +37,7 @@ from torch import nn
 from retrieval_based_object_detection_tpu_torch.ops.clip_attention import (
     clip_attention_core,
 )
+from retrieval_based_object_detection_tpu_torch.ops.dense import dense_f32
 from retrieval_based_object_detection_tpu_torch.utils.platform import (
     resolve_device,
 )
@@ -176,8 +177,8 @@ class ResidualAttentionBlock(nn.Module):
         a = clip_attention_core(qkv, heads=self.heads)      # [B, T, W]
         x = x + _dense(a, p["w_out"], p["b_out"])
         h = layer_norm(x, p["ln_2_scale"], p["ln_2_bias"])
-        h = _dense(h, p["w_fc"], p["b_fc"])
-        h = quick_gelu(h.to(torch.float32)).to(x.dtype)
+        # The GELU takes the f32 sum, as in the JAX block.
+        h = quick_gelu(dense_f32(h, p["w_fc"], p["b_fc"])).to(x.dtype)
         return x + _dense(h, p["w_proj"], p["b_proj"])
 
 

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from retrieval_based_object_detection_tpu_torch.ops.attention import (
     flash_attention_2d_bias,
 )
+from retrieval_based_object_detection_tpu_torch.ops.dense import dense_f32
 
 Params = dict[str, Any]
 
@@ -187,7 +188,9 @@ def _block_forward(x: torch.Tensor, blk: Params, heads: int, window: int,
         h = _attention(h, blk, heads, use_flash=use_flash)
     x = x + h
     h = _ln(x, blk["ln2_s"], blk["ln2_b"])
-    h = F.gelu(_dense(h, blk["fc1"]).float(), approximate="none")
+    # The GELU takes the f32 sum, as in the JAX block.
+    h = F.gelu(dense_f32(h, blk["fc1"]["w"], blk["fc1"]["b"]),
+               approximate="none")
     return x + _dense(h.to(x.dtype), blk["fc2"])
 
 

@@ -14,7 +14,9 @@ read from its per-query tables, so the logits never reach device memory.
 
 On CUDA tensors both launch the hand-written kernel in ``csrc/attention.cu``
 (f32 or bf16 q/k/v, f32 bias tables, any T = grid_h · grid_w, head dims up to
-128 in multiples of 8). On CPU tensors they run their plain versions
+128 in multiples of 8), which runs both products on the tensor cores: bf16
+by ``mma.sync`` m16n8k16, f32 by 3xTF32 on m16n8k8, which keeps f32
+accuracy. On CPU tensors they run their plain versions
 (``flash_attention_2d_bias_plain`` and ``flash_attention_plain``: f32 logits
 plus bias, softmax, PV), which the tests hold against the JAX package's
 kernels and ``chip_smoke.py`` holds the kernel against on the card. The
@@ -84,8 +86,19 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor,
                         v.float()).to(q.dtype)
 
 
-def _threads_per_row(head_dim: int) -> int:
-    return 1 if head_dim <= 32 else 2 if head_dim <= 64 else 4
+def _smem_bytes(head_dim: int, dtype: torch.dtype, bias_cols: int) -> int:
+    """Dynamic shared memory of one block of ``csrc/attention.cu``: K and V
+    tiles of 64 keys in two stages, their rows padded (head dims to 32, 64
+    or 128, plus 8 elements; f32 V rows plus 4); for B6 two 64-entry key
+    tables and the block's bias rows (64 query rows in f32, 128 in bf16) at
+    an odd stride."""
+    width = 32 if head_dim <= 32 else 64 if head_dim <= 64 else 128
+    f32 = dtype == torch.float32
+    row = (width + 8) + (width + (4 if f32 else 8))  # one K and one V row
+    smem = 2 * 64 * row * (4 if f32 else 2)
+    if bias_cols:
+        smem += 2 * 64 * 8 + (64 if f32 else 128) * (bias_cols | 1) * 4
+    return smem
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -109,9 +122,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
-    smem = 2 * 64 * _threads_per_row(Dh) * 36 * 4
-    if bias_cols:
-        smem += 64 * (bias_cols | 1) * 4
+    smem = _smem_bytes(Dh, q.dtype, bias_cols)
     if smem > MAX_SMEM:
         raise ValueError(
             f"grid_h + grid_w = {bias_cols}: a block's bias rows and K/V "

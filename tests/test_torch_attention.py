@@ -124,3 +124,27 @@ def test_2d_bias_rejects_a_grid_that_is_not_t():
         A.flash_attention_2d_bias(q, k, v, bh, bw, 2, 2)
     with pytest.raises(ValueError, match="bias tables"):
         A.flash_attention_2d_bias(q, k, v, bw, bh, 2, 3)
+
+
+@pytest.mark.parametrize("D,dtype,cols,fits", [
+    (64, torch.float32, 128, True),      # SAM-B global: 105,728 bytes
+    (64, torch.bfloat16, 28, True),      # SAM-B windowed
+    (64, torch.bfloat16, 379, True),     # the widest bf16 bias at D = 64
+    (64, torch.bfloat16, 381, False),
+    (128, torch.float32, 300, True),
+    (64, torch.float32, 1001, False),    # a 1 × 1000 grid's bias rows
+    (8, torch.bfloat16, 0, True),
+])
+def test_shared_memory_budget(D, dtype, cols, fits):
+    """The wrapper's shared-memory count is the kernel's: two stages of
+    64-key K and V rows padded to 32/64/128 head dims plus 8 elements (f32
+    V rows plus 4), and for B6 two 64-entry key tables and the block's bias
+    rows (64 query rows in f32, 128 in bf16) of ``(grid_h + grid_w) | 1``
+    floats."""
+    width = 32 if D <= 32 else 64 if D <= 64 else 128
+    es, vpad, rows = (4, 4, 64) if dtype == torch.float32 else (2, 8, 128)
+    want = 2 * 64 * ((width + 8) + (width + vpad)) * es
+    if cols:
+        want += 2 * 64 * 8 + rows * (cols | 1) * 4
+    assert A._smem_bytes(D, dtype, cols) == want
+    assert (want <= A.MAX_SMEM) == fits

@@ -113,15 +113,19 @@ def _non_unit_ln_params(jcfg, seed):
     return p
 
 
-@pytest.mark.parametrize("layers,rel_tol", [(0, 1e-6), (2, 1e-2)])
+@pytest.mark.parametrize("layers,rel_tol", [(0, 1e-6), (2, 7e-3)])
 def test_bf16_encode_tracks_jax_bf16(layers, rel_tol):
     """The bf16 tower casts where JAX's ``encode_image`` casts: f32
-    ``ln_pre``/``ln_post`` scale and bias, everything else in bf16 at use.
-    With no blocks the two agree to 1e-6 of the largest |embedding| (f32
-    parameters rounded to bf16, as before this casting, miss by ~6e-3).
-    With blocks, 1e-2: torch's bf16 ``addmm`` rounds the MLP's fc output to
-    bf16 before the GELU where JAX applies the GELU to the f32 sum, one
-    bf16 rounding (2^-9) per block feeding the residual stream."""
+    ``ln_pre``/``ln_post`` scale and bias, everything else in bf16 at use,
+    and the MLP's GELU on the f32 sum of ``w_fc``. With no blocks the two
+    agree to 1e-6 of the largest |embedding| (f32 parameters rounded to
+    bf16, as before this casting, miss by ~6e-3). With blocks, 7e-3 (5.5e-3
+    measured; 7.2e-3 while the fc output was rounded before the GELU): what
+    remains is f32 sums taken in another order (LayerNorm statistics) that
+    round a few activations to the neighbouring bf16 value (0.02% of
+    ``ln_1``'s outputs), which the attention and the non-unit ``ln_post``
+    spread; ``test_bf16_block_matches_jax_bf16`` shows a block alone
+    agrees bit for bit."""
     cfg = dict(MULTI, layers=layers)
     jcfg = jm.CLIPVisionConfig(**cfg)
     p = _non_unit_ln_params(jcfg, seed=3)
@@ -144,3 +148,34 @@ def test_build_tower_is_frozen_and_the_training_tower_is_not():
     assert not any(p.requires_grad for p in frozen.parameters())
     assert all(p.requires_grad
                for p in tm.CLIPVisionTower(cfg).parameters())
+
+
+def test_bf16_block_matches_jax_bf16():
+    """One bf16 block on the same bf16 input, unit LayerNorms: the port's
+    block equals JAX's ``_block`` bit for bit on this input, up to a
+    neighbouring bf16 value in under 1% of the outputs (sums in another
+    order). Rounding the fc output to bf16 before the GELU, as torch's bf16
+    ``addmm`` would, changes ~40% of them."""
+    W, H = 64, 4
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(4, 17, W)).astype(np.float32)
+    shapes = {"w_qkv": (W, 3 * W), "w_out": (W, W), "w_fc": (W, 4 * W),
+              "w_proj": (4 * W, W)}
+    blk = {k: rng.normal(0, W ** -0.5, s).astype(np.float32)
+           for k, s in shapes.items()}
+    blk.update(ln_1_scale=np.ones(W, np.float32),
+               ln_2_scale=np.ones(W, np.float32),
+               **{k: np.zeros(n, np.float32) for k, n in (
+                   ("ln_1_bias", W), ("ln_2_bias", W), ("b_qkv", 3 * W),
+                   ("b_out", W), ("b_fc", 4 * W), ("b_proj", W))})
+    want = np.asarray(jm._block(
+        jnp.asarray(x).astype(jnp.bfloat16),
+        {k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in blk.items()},
+        H).astype(jnp.float32))
+    block = tm.ResidualAttentionBlock(W, H, 4)
+    block.load_state_dict({k: torch.from_numpy(v) for k, v in blk.items()})
+    with torch.no_grad():
+        got = block(torch.from_numpy(x).bfloat16()).float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    assert np.abs(got - want).max() <= ulp
+    assert (got != want).mean() < 0.01

@@ -136,7 +136,10 @@ FLASH_TOLS = [(torch.float32, 1e-4, 1e-5), (torch.bfloat16, 1e-2, 2 ** -7)]
 @pytest.mark.parametrize("dtype,atol,rtol", FLASH_TOLS)
 @pytest.mark.parametrize("B,H,gh,gw,D", [(4, 3, 14, 14, 64), (2, 2, 7, 9, 64),
                                          (1, 2, 64, 64, 64),
-                                         (2, 1, 7, 9, 16), (1, 2, 14, 14, 96)])
+                                         (2, 1, 7, 9, 16), (1, 2, 14, 14, 96),
+                                         (2, 2, 9, 7, 64), (1, 3, 13, 10, 64),
+                                         (2, 2, 13, 10, 8), (1, 2, 9, 7, 24),
+                                         (1, 1, 13, 10, 128)])
 def test_flash_2d_bias_kernel_matches_plain(cuda_device, dtype, atol, rtol,
                                             B, H, gh, gw, D):
     q, k, v, bh, bw = _qkv_bias(cuda_device, dtype, B, H, gh, gw, D,
@@ -153,7 +156,10 @@ def test_flash_2d_bias_kernel_matches_plain(cuda_device, dtype, atol, rtol,
 
 @pytest.mark.parametrize("dtype,atol,rtol", FLASH_TOLS)
 @pytest.mark.parametrize("B,H,T,D", [(2, 3, 1000, 64), (1, 2, 77, 40),
-                                     (1, 1, 4096, 128)])
+                                     (1, 1, 4096, 128), (2, 2, 63, 64),
+                                     (2, 2, 65, 64), (1, 3, 127, 64),
+                                     (1, 3, 129, 64), (2, 1, 129, 8),
+                                     (1, 2, 65, 24)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, atol, rtol, B, H, T,
                                     D):
     g = torch.Generator(device="cpu").manual_seed(T + D)
@@ -166,6 +172,31 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, atol, rtol, B, H, T,
     torch.testing.assert_close(got.float(),
                                A.flash_attention_plain(q, k, v).float(),
                                atol=atol, rtol=rtol)
+
+
+# Logits scaled ×30 (q·30): row maxima jump between key tiles, so the
+# online rescale by exp(m_prev − m_new) and the −1e30 start run through the
+# fragments, and most p underflow to 0.
+@pytest.mark.parametrize("dtype,atol,rtol", FLASH_TOLS)
+@pytest.mark.parametrize("B,H,gh,gw,D", [(1, 2, 64, 64, 64), (2, 2, 13, 10, 64),
+                                         (1, 2, 9, 7, 96)])
+def test_flash_kernels_large_logits_match_plain(cuda_device, dtype, atol,
+                                                rtol, B, H, gh, gw, D):
+    q, k, v, bh, bw = _qkv_bias(cuda_device, torch.float32, B, H, gh, gw, D,
+                                seed=7 * gh + D)
+    q, k, v = (q * 30).to(dtype), k.to(dtype), v.to(dtype)
+    got = A.flash_attention_2d_bias(q, k, v, bh * 30, bw, gh, gw)
+    got7 = A.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and \
+        torch.isfinite(got7.float()).all()
+    torch.testing.assert_close(
+        got.float(), A.flash_attention_2d_bias_plain(q, k, v, bh * 30, bw, gh,
+                                                     gw).float(),
+        atol=atol, rtol=rtol)
+    torch.testing.assert_close(
+        got7.float(), A.flash_attention_plain(q, k, v).float(), atol=atol,
+        rtol=rtol)
 
 
 def test_flash_kernels_reject_what_they_do_not_take(cuda_device):

@@ -79,6 +79,48 @@ def test_encoder_matches_jax(cfg, use_flash):
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
+def test_encoder_bf16_matches_jax_bf16():
+    """SAM_TINY's encoder in bf16, einsum attention on both sides. Each
+    block on the same bf16 input agrees with JAX's to within one bf16 ulp
+    of its largest output, with under 1% of outputs apart (sums in another
+    order; the MLP's GELU takes the f32 sum of ``fc1`` on both sides —
+    rounded first, ~40% of a block's outputs differ). The whole encoder:
+    within 4e-2 of outputs up to ~3.3 (2^-5, two bf16 ulps there; 2.3e-2
+    measured), since those one-ulp flips spread through the neck's convs
+    and LayerNorms."""
+    cfg = M.SAM_TINY.encoder
+    params = E.init_params(cfg, seed=1)
+    tparams = M.params_from_jax(params)
+    x = np.random.default_rng(3).normal(
+        size=(2, cfg.grid, cfg.grid, cfg.embed_dim)).astype(np.float32)
+    for i in range(cfg.depth):
+        window = 0 if i in cfg.global_attn_indexes else cfg.window_size
+        want = np.asarray(JE._block_forward(
+            jnp.asarray(x).astype(jnp.bfloat16),
+            jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16),
+                         params["blocks"][i]),
+            cfg.heads, window).astype(jnp.float32))
+        with torch.no_grad():
+            got = E._block_forward(
+                torch.from_numpy(x).bfloat16(),
+                E._cast(tparams["blocks"][i], torch.bfloat16), cfg.heads,
+                window, use_flash=False).float().numpy()
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        assert np.abs(got - want).max() <= ulp, i
+        assert (got != want).mean() < 0.01, i
+
+    img = np.random.default_rng(2).normal(
+        size=(2, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
+    want = np.asarray(JE.forward(jax.tree.map(jnp.asarray, params), img,
+                                 JM.SAM_TINY.encoder, jnp.bfloat16,
+                                 use_flash=False).astype(jnp.float32))
+    with torch.no_grad():
+        got = E.forward(tparams, torch.from_numpy(img), cfg, torch.bfloat16,
+                        use_flash=False)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=4e-2)
+
+
 def test_window_partition_roundtrip():
     x = torch.from_numpy(np.random.default_rng(0).normal(
         size=(2, 10, 14, 8)).astype(np.float32))
