@@ -5,10 +5,11 @@ segment paths on one NVIDIA GPU.
     python3 chip_smoke.py [--seed 0]
 
 Builds the port's CUDA kernels from ``csrc/`` (one nvcc per source, all
-started together), counts the tensor-core instructions of each flash
-kernel, and holds each kernel against its plain PyTorch version at the
-shapes its path gives it. Then it drives four paths through the calls a
-user makes, at full width from seeded weights:
+started together), counts the tensor-core instructions of each
+tensor-core kernel (B1, B4, B6, B7), and holds each kernel against its
+plain PyTorch version at the shapes its path gives it. Then it drives
+four paths through the calls a user makes, at full width from seeded
+weights:
 
 - serving: a few hundred synthetic crops are embedded into a Gallery,
   ``build_delegates`` runs, ``serve_http`` answers concurrent
@@ -111,33 +112,75 @@ def bound_ms(n_bytes: float, n_ops: float, op_type: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def hmma_phase(lib_path) -> dict:
-    """Tensor-core instructions (HMMA) in each flash kernel of the built
-    attention library, from ``cuobjdump -sass``; every instantiation must
-    have some."""
+def cuda_graph_ms(torch, fn, reps: int = 20) -> float:
+    """Mean device time of one call from one replay of a CUDA graph that
+    holds ``reps`` calls: for kernels of a few microseconds, where the host
+    cannot start eager calls as fast as the card runs them and events around
+    eager calls time the host."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# The tensor-core kernels of each library, by their mangled names: the flash
+# kernels (B6/B7: f32 and bf16 x head width 32/64/128 x bias), the attention
+# core's forward (B1: f32 and bf16 x head width 32/64/128) and the medoid's
+# tile kernel (B4).
+HMMA_KERNELS = {
+    "attention": ("flash_fwd", r"I(13__nv_bfloat16|f)Li(\d+)ELb([01])E", 12),
+    "clip_attention": ("attn_core_fwd", r"I(13__nv_bfloat16|f)Li(\d+)E", 6),
+    "medoid": ("tile_sums", "", 1),
+}
+
+
+def hmma_phase(libraries) -> dict:
+    """Tensor-core instructions (HMMA, which is also what mma.sync on TF32
+    compiles to) in each tensor-core kernel of the built libraries, from
+    ``cuobjdump -sass``; every instantiation must have some."""
     import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        fn = re.search(r"Function : (\S+)", line)
-        if fn:
-            kind = re.search(r"flash_fwdI(13__nv_bfloat16|f)Li(\d+)ELb([01])E",
-                             fn.group(1))
-            name = None if kind is None else "flash_fwd<{}, {}, {}>".format(
-                "bf16" if kind.group(1) != "f" else "f32", kind.group(2),
-                "bias" if kind.group(3) == "1" else "no bias")
-            if name:
-                counts[name] = 0
-        elif name and "HMMA" in line:
-            counts[name] += 1
-    if len(counts) != 12 or not all(counts.values()):
-        raise AssertionError(f"HMMA counts per flash kernel: {counts}")
-    log("flash_hmma", library=lib_path.name, hmma=counts)
-    return counts
+    out = {}
+    for lib in libraries:
+        kernel, template, expected = HMMA_KERNELS[lib.name]
+        sass = subprocess.run([tool, "-sass", str(lib.path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        counts, name = {}, None
+        for line in sass.splitlines():
+            fn = re.search(r"Function : (\S+)", line)
+            if fn:
+                kind = re.search(kernel + template, fn.group(1))
+                name = None
+                if kind:
+                    g = kind.groups()
+                    args = ["bf16" if g[0] != "f" else "f32", g[1]] + \
+                        [["no bias", "bias"][int(b)] for b in g[2:]] \
+                        if g else []
+                    name = kernel + (f"<{', '.join(args)}>" if args else "")
+                    counts[name] = 0
+            elif name and "HMMA" in line:
+                counts[name] += 1
+        if len(counts) != expected or not all(counts.values()):
+            raise AssertionError(
+                f"HMMA counts per kernel of {lib.path.name}: {counts}")
+        log("hmma", library=lib.path.name, hmma=counts)
+        out[lib.name] = counts
+    return out
 
 
 def attention_phase(torch, F, CA, seed: int) -> dict:
@@ -169,12 +212,21 @@ def attention_phase(torch, F, CA, seed: int) -> dict:
         # for scale, max, subtract, exp and divide.
         n_ops = B * H * (4 * T * T * D + 5 * T * T)
         b_ms, b_by = bound_ms(n_bytes, n_ops, name)
+        # The kernel and SDPA take 15 to 40 us, less than the host needs
+        # to start one eager call: ms, plain_ms and library_ms are device
+        # times from a CUDA graph's replay; the eager_ms beside them are
+        # events around 20 eager calls, as the other kernels are timed.
         out[name] = {
             "max_abs_err": err, "atol": atol, "rtol": rtol,
-            "ms": cuda_ms(torch, lambda: CA.clip_attention_core(qkv, H)),
-            "plain_ms": cuda_ms(
+            "ms": cuda_graph_ms(
+                torch, lambda: CA.clip_attention_core(qkv, H)),
+            "plain_ms": cuda_graph_ms(
                 torch, lambda: CA.clip_attention_core_plain(qkv, H)),
-            "library_ms": cuda_ms(
+            "library_ms": cuda_graph_ms(
+                torch, lambda: F.scaled_dot_product_attention(q, k, v)),
+            "eager_ms": cuda_ms(
+                torch, lambda: CA.clip_attention_core(qkv, H)),
+            "library_eager_ms": cuda_ms(
                 torch, lambda: F.scaled_dot_product_attention(q, k, v)),
             "bound_ms": b_ms, "bound_by": b_by,
         }
@@ -384,6 +436,36 @@ def medoid_agrees(i: int, plain) -> bool:
         float(plain[i]) - lo <= MEDOID_ATOL + MEDOID_RTOL * lo
 
 
+def medoid_near_duplicates(torch, M, seed: int) -> dict:
+    """B4 on a class of jittered crops: 3,000 rows, one unit centre plus
+    1e-3 noise, 512-d, so d² is a difference of nearly equal numbers.
+    Against float64 direct distances the kernel must be within the medoid
+    tolerance and pick a member as good as the plain version's."""
+    N, D = 3_000, 512
+    g = torch.Generator(device="cpu").manual_seed(seed + 15)
+    centre = torch.nn.functional.normalize(
+        torch.randn(D, generator=g, dtype=torch.float64), dim=0)
+    x = (centre + 1e-3 * torch.randn(N, D, generator=g, dtype=torch.float64)
+         ).float().cuda()
+    ref = torch.cdist(x.double(), x.double(),
+                      compute_mode="donot_use_mm_for_euclid_dist").sum(1)
+    got = M.pairwise_distance_sums(x)
+    torch.cuda.synchronize()
+    plain = M.pairwise_distance_sums_plain(x)
+    best = float(ref.min())
+    out = {
+        "shape": [N, D], "tol": MEDOID_ATOL + MEDOID_RTOL * best,
+        "err_vs_float64": float((got.double() - ref).abs().max()),
+        "plain_err_vs_float64": float((plain.double() - ref).abs().max()),
+        "argmin_gap": float(ref[got.argmin()]) - best,
+        "plain_argmin_gap": float(ref[plain.argmin()]) - best,
+    }
+    if out["err_vs_float64"] > out["tol"] or \
+            out["argmin_gap"] > out["plain_argmin_gap"] + 1e-3:
+        raise AssertionError(f"medoid kernel on near-duplicate rows: {out}")
+    return out
+
+
 def medoid_phase(torch, M, seed: int) -> dict:
     """B4 against its plain version at N=12,000 (not a tile multiple) x
     512 seeded unit rows."""
@@ -400,6 +482,7 @@ def medoid_phase(torch, M, seed: int) -> dict:
         raise AssertionError("medoid kernel's argmin is not the plain one")
     if not torch.equal(M.pairwise_distance_sums(x), got):
         raise AssertionError("medoid kernel sums differ between runs")
+    near = medoid_near_duplicates(torch, M, seed)
     # The sums need each unordered pair's distance once: N(N-1)/2 dot
     # products of 2D operations each.
     b_ms, b_by = bound_ms(4 * N * D + 4 * N, N * (N - 1) * D, "float32")
@@ -413,7 +496,7 @@ def medoid_phase(torch, M, seed: int) -> dict:
                             reps=5, warmup=1),
         "library_ms": cuda_ms(torch, lambda: torch.cdist(x, x).sum(1),
                               reps=5, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms": b_ms, "bound_by": b_by, "near_duplicates": near,
     }
     log("medoid_kernel_vs_plain", shape=[N, D], **out)
     return out
@@ -1281,7 +1364,7 @@ def main(argv=None) -> int:
     cuda_lib.build_all(libraries)
     log("build", seconds=time.perf_counter() - t,
         libraries=[lib.path.name for lib in libraries])
-    hmma_phase(A.KERNEL.path)
+    hmma_phase([A.KERNEL, CA.KERNEL, M.KERNEL])
 
     attn = attention_phase(torch, F, CA, args.seed)
     attn_bwd = attention_bwd_phase(torch, F, CA, args.seed)

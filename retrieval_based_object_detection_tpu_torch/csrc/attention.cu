@@ -71,6 +71,8 @@
 
 #include <type_traits>
 
+#include "mma.cuh"
+
 namespace {
 
 // The block: one 16-row m-tile of queries per warp, kWarps warps sharing
@@ -96,124 +98,6 @@ __host__ __device__ constexpr int k_stride(int d) { return d + 8; }
 template <typename T>
 __host__ __device__ constexpr int v_stride(int d) {
   return d + (std::is_same<T, float>::value ? 4 : 8);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// 4 bytes global -> shared, asynchronously; zero-filled when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// d += a b, a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 f32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b, a 16x8 tf32 (row), b 8x8 tf32 (col), d 16x8 f32.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x = hi + lo: hi is x rounded to tf32 (half a tf32 ulp added, the low 13
-// bits cleared), lo = x - hi exactly in f32, whose low mantissa bits the
-// tf32 mma ignores. Two integer ops and a subtraction: with cvt.rna.tf32
-// for hi and lo instead, B7 in f32 at SAM-B's global shape took 7.74
-// against 4.97 ms, for results within 4e-7 of these.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a b in 3xTF32: the small cross terms first, then hi * hi.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], float b0,
-                                           float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split_tf32(b0, bh0, bl0);
-  split_tf32(b1, bh1, bl1);
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-}
-
-// 2^x on the special-function unit; a denormal result flushes to 0. Same
-// results as exp2f on the card tests, 5% less time in bf16 B6/B7.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float a, float b);
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-template <>
-__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
-                                                      float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 template <typename T, int kD, bool kBias>

@@ -4,7 +4,9 @@ backward (kernel B5).
 ``clip_attention_core`` takes the packed ``[B, T, 3W]`` qkv exactly as the
 input projection emits it and returns the merged ``[B, T, W]`` attention
 output (before the out-projection). On a CUDA tensor it launches the
-hand-written forward in ``csrc/clip_attention.cu`` (f32 or bf16); on a CPU
+hand-written forward in ``csrc/clip_attention.cu`` (bf16 on the tensor
+cores by ``mma.sync``, f32 by 3xTF32; head widths to 128 in multiples of
+8, any T whose q, k and v fit one block's shared memory); on a CPU
 tensor it runs ``clip_attention_core_plain``, the einsum path of the JAX
 tower, which tests and ``chip_smoke.py`` hold the kernel against.
 
@@ -84,7 +86,25 @@ def clip_attention_core_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
                      dim=-1).to(qkv.dtype)
 
 
-def _check(qkv: torch.Tensor, heads: int, smem_floats: int) -> None:
+def _fwd_smem_bytes(T: int, D: int, itemsize: int) -> int:
+    """Shared memory of one B1 block (csrc/clip_attention.cu): the head's q,
+    k and v rows in the input type, T padded to key tiles of 64, the head
+    width to the kernel's instantiation (32, 64 or 128) plus row padding."""
+    rows = -(-T // 64) * 64
+    kd = 32 if D <= 32 else 64 if D <= 64 else 128
+    v_pad = 4 if itemsize == 4 else 8
+    return rows * (2 * (kd + 8) + kd + v_pad) * itemsize
+
+
+def _bwd_smem_bytes(T: int, D: int, itemsize: int) -> int:
+    """Shared memory of one B5 block: q, k, v and dO widened to f32 at row
+    stride D + 1, and two [T, T + 1] f32 buffers."""
+    return 4 * (4 * T * (D + 1) + 2 * T * (T + 1))
+
+
+def _check(qkv: torch.Tensor, heads: int, smem_bytes) -> None:
+    """Raise on what the kernels do not take; ``smem_bytes(T, D, itemsize)``
+    is the shared memory one block of the kernel needs."""
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     if qkv.ndim != 3 or qkv.shape[2] % (3 * heads):
@@ -95,10 +115,11 @@ def _check(qkv: torch.Tensor, heads: int, smem_floats: int) -> None:
                         "or bfloat16")
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
-    if smem_floats * 4 > MAX_SMEM:
-        T, D = qkv.shape[1], qkv.shape[2] // (3 * heads)
+    T, D = qkv.shape[1], qkv.shape[2] // (3 * heads)
+    need = smem_bytes(T, D, qkv.element_size())
+    if need > MAX_SMEM:
         raise ValueError(
-            f"T={T}, D={D}: one head needs {smem_floats * 4} bytes of shared "
+            f"T={T}, D={D}: one head needs {need} bytes of shared "
             f"memory, more than the {MAX_SMEM} a block has")
 
 
@@ -108,7 +129,12 @@ def _forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
         return clip_attention_core_plain(qkv, heads)
     B, T, threeW = qkv.shape
     D = threeW // (3 * heads)
-    _check(qkv, heads, 3 * T * (D + 1) + T * (T + 1))
+    _check(qkv, heads, _fwd_smem_bytes)
+    if D % 8 or D > 128 or qkv.data_ptr() % 16:
+        raise ValueError(
+            f"D={D}: the forward kernel copies 16-byte chunks of each head's "
+            "slice and multiplies 8 dims at a time (needs a 16-byte aligned "
+            "qkv and D % 8 == 0, D <= 128)")
     out = torch.empty((B, T, threeW // 3), dtype=qkv.dtype,
                       device=qkv.device)
     if B == 0 or T == 0:
@@ -129,7 +155,7 @@ def clip_attention_core_bwd(qkv: torch.Tensor, dout: torch.Tensor,
         return clip_attention_core_bwd_plain(qkv, dout, heads)
     B, T, threeW = qkv.shape
     D = threeW // (3 * heads)
-    _check(qkv, heads, 4 * T * (D + 1) + 2 * T * (T + 1))
+    _check(qkv, heads, _bwd_smem_bytes)
     if dout.shape != (B, T, threeW // 3) or dout.dtype != qkv.dtype \
             or dout.device != qkv.device or not dout.is_contiguous():
         raise ValueError(

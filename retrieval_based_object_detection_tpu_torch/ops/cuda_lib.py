@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
 the checkout (a directory git ignores) and bound with ``ctypes``. The
-library's file name carries a hash of its source and flags, so an edited
-source is never served by a stale build. Nothing is compiled or loaded when
+library's file name carries a hash of its source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header is never
+served by a stale build. Nothing is compiled or loaded when
 a module is imported: the CPU tests import every module and have no nvcc.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
@@ -62,10 +63,11 @@ class CudaLibrary:
 
     @functools.cached_property
     def path(self) -> Path:
-        digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
 
     def start_build(self) -> tuple[subprocess.Popen, Path] | None:
         """Start ``nvcc`` for this source unless the library is built;
@@ -74,7 +76,8 @@ class CudaLibrary:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp

@@ -5,11 +5,13 @@ The medoid strategy needs the row sums of the full N×N distance matrix
 tile by tile with the Gram trick in f32 (d² clamped at 0, the diagonal
 exactly 0), so the matrix never exists in device memory.
 
-On CUDA tensors it launches the hand-written kernel in ``csrc/medoid.cu``,
-which takes N as it is (the ragged tile is masked in the kernel) and sums
-in a fixed order, so the argmin is the same on every run. On CPU tensors it
-runs ``pairwise_distance_sums_plain``, the same math over row blocks with
-``torch.matmul``, which tests and ``chip_smoke.py`` hold the kernel against.
+On CUDA tensors it launches the hand-written kernel in ``csrc/medoid.cu``
+(only the tile pairs on or above the diagonal, in 3xTF32 on the tensor
+cores), which takes N as it is (the ragged tile is masked in the kernel)
+and sums in a fixed order, so the argmin is the same on every run. On CPU
+tensors it runs ``pairwise_distance_sums_plain``, the same math over row
+blocks with ``torch.matmul``, which tests and ``chip_smoke.py`` hold the
+kernel against.
 Both expect TF32 off (PyTorch's default for matmuls).
 """
 
@@ -33,8 +35,11 @@ KERNEL = CudaLibrary("medoid", {
                     ctypes.c_void_p],
 })
 
-_TILE = 64          # csrc/medoid.cu kTile
-_MAX_SEGMENTS = 32  # column segments a row tile is split over
+_TILE = 128  # csrc/medoid.cu kTile
+# The kernel's scratch holds one f32 slot per (row tile, row): N² / 128
+# floats. Past this many bytes the launcher walks super-blocks of row tiles
+# that fit (12,000 rows need 4.5 MB, 100,000 rows 313 MB).
+_SCRATCH_BYTES = 64 << 20
 _PLAIN_BLOCK = 1024  # rows per block of the plain version: O(1024 · N) memory
 
 
@@ -66,25 +71,23 @@ def pairwise_distance_sums(vectors: torch.Tensor) -> torch.Tensor:
     if vectors.dtype != torch.float32:
         raise TypeError(f"f32 rows are required, got {vectors.dtype}")
     n, d = vectors.shape
-    if d % 4:
+    if d % 4 or d == 0:
         raise ValueError(f"dim={d}: the kernel reads rows in 16-byte "
-                         "chunks (needs dim % 4 == 0)")
+                         "chunks (needs dim % 4 == 0, dim > 0)")
     if not vectors.is_contiguous() or vectors.data_ptr() % 16:
         raise ValueError("rows must be contiguous and 16-byte aligned")
-    tiles = -(-n // _TILE)
-    if tiles > 65535:
-        raise ValueError(f"{n} rows exceed the kernel's grid "
-                         f"({65535 * _TILE} at most)")
+    if n >= 2 ** 31 - _TILE:
+        raise ValueError(f"{n} rows exceed the kernel's 32-bit row index")
     out = torch.empty(n, dtype=torch.float32, device=vectors.device)
     if n == 0:
         return out
-    segments = min(tiles, _MAX_SEGMENTS)
+    slots = min(-(-n // _TILE), max(1, _SCRATCH_BYTES // (4 * n)))
     sq = torch.empty(n, dtype=torch.float32, device=vectors.device)
-    partial = torch.empty((segments, n), dtype=torch.float32,
+    partial = torch.empty((slots, n), dtype=torch.float32,
                           device=vectors.device)
     KERNEL.launch(
         "medoid_sums", vectors.data_ptr(), sq.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), n, d, segments,
+        out.data_ptr(), n, d, slots,
         torch.cuda.current_stream(vectors.device).cuda_stream)
     return out
 

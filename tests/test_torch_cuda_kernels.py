@@ -34,7 +34,14 @@ def cuda_device():
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-5),
                                              (torch.bfloat16, 1e-2, 2 ** -7)])
 @pytest.mark.parametrize("B,T,heads,D", [(8, 50, 12, 64), (3, 17, 4, 32),
-                                         (2, 77, 8, 64)])
+                                         (2, 77, 8, 64),
+                                         # the m-tile's and key tile's edges
+                                         (2, 16, 3, 64), (2, 49, 3, 64),
+                                         (2, 64, 3, 64), (2, 65, 3, 64),
+                                         (1, 50, 12, 64), (1, 1, 1, 64),
+                                         # the narrowest and widest heads
+                                         (3, 50, 5, 8), (2, 50, 2, 128),
+                                         (2, 77, 3, 24), (1, 128, 2, 128)])
 def test_attention_kernel_matches_plain(cuda_device, dtype, atol, rtol,
                                         B, T, heads, D):
     g = torch.Generator(device="cpu").manual_seed(B * T)
@@ -49,14 +56,69 @@ def test_attention_kernel_matches_plain(cuda_device, dtype, atol, rtol,
                                rtol=rtol)
 
 
+def _attention_float64(qkv, heads):
+    B, T, W3 = qkv.shape
+    W = W3 // 3
+    q, k, v = (t.double().view(B, T, heads, W // heads).transpose(1, 2)
+               for t in qkv.split(W, dim=-1))
+    p = torch.softmax(q @ k.transpose(-1, -2) * (W // heads) ** -0.5, dim=-1)
+    return (p @ v).transpose(1, 2).reshape(B, T, W)
+
+
+# Logits scaled x30 (q * 30): rows close to one-hot, most p underflow to 0,
+# and at T = 77 the row maximum may lie in either key tile, so pass 1's
+# running rescale and its -1e30 start run through the fragments. bf16 keeps
+# its tolerance against the plain version. In f32 the raw dots reach ~1000,
+# where one f32 rounding is 6e-5, so two correct f32 computations differ by
+# more than 1e-5: measured on the H100 the plain version is 2.9e-5 to 4.6e-5
+# from a float64 reference at these shapes. There the kernel is held to the
+# float64 reference instead: within (1e-5, 1e-5) of it, or as close to it as
+# the plain version is.
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-5),
+                                             (torch.bfloat16, 1e-2, 2 ** -7)])
+@pytest.mark.parametrize("B,T,heads,D", [(4, 50, 12, 64), (2, 77, 4, 64),
+                                         (1, 130, 2, 32)])
+def test_attention_kernel_large_logits_match_plain(cuda_device, dtype, atol,
+                                                   rtol, B, T, heads, D):
+    g = torch.Generator(device="cpu").manual_seed(T + D)
+    qkv = torch.randn(B, T, 3 * heads * D, generator=g)
+    qkv[..., :heads * D] *= 30
+    qkv = qkv.to(cuda_device, dtype)
+    got = CA.clip_attention_core(qkv, heads=heads)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    want = CA.clip_attention_core_plain(qkv, heads=heads)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+        return
+    ref = _attention_float64(qkv, heads)
+    err = (got.double() - ref).abs()
+    err_plain = float((want.double() - ref).abs().max())
+    assert bool((err <= atol + rtol * ref.abs()).all()) or \
+        float(err.max()) <= err_plain
+
+
 def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     qkv = torch.zeros(2, 50, 3 * 64, device=cuda_device)
     with pytest.raises(TypeError):
         CA.clip_attention_core(qkv.half(), heads=1)
     with pytest.raises(ValueError, match="contiguous"):
         CA.clip_attention_core(qkv.transpose(0, 1), heads=1)
+    # One head's q, k and v stay in shared memory in the input type: T = 400
+    # at D = 64 fits a block in bf16 (7 key tiles) and not in f32.
+    long = torch.randn(1, 400, 3 * 64, device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
-        CA.clip_attention_core(torch.zeros(1, 400, 3 * 64,
+        CA.clip_attention_core(long, heads=1)
+    torch.testing.assert_close(
+        CA.clip_attention_core(long.bfloat16(), heads=1).float(),
+        CA.clip_attention_core_plain(long.bfloat16(), heads=1).float(),
+        atol=1e-2, rtol=2 ** -7)
+    with pytest.raises(ValueError, match="D=12"):
+        CA.clip_attention_core(torch.zeros(1, 50, 3 * 12,
+                                           device=cuda_device), heads=1)
+    with pytest.raises(ValueError, match="D=136"):
+        CA.clip_attention_core(torch.zeros(1, 50, 3 * 136,
                                            device=cuda_device), heads=1)
 
 
@@ -292,7 +354,10 @@ def test_int4_scan_kernel_rejects_what_it_does_not_take(cuda_device):
 # Sums of up to N distances: the JAX package's medoid tolerance
 # (tests/test_pallas_medoid.py), for the Gram trick summed in another order.
 @pytest.mark.parametrize("N,D", [(12_000, 512), (1, 512), (65, 512),
-                                 (1000, 36), (4097, 128)])
+                                 (1000, 36), (4097, 128),
+                                 # the 128-row tile's edges
+                                 (127, 512), (128, 512), (129, 512),
+                                 (257, 64), (2, 4)])
 def test_medoid_kernel_matches_plain(cuda_device, N, D):
     g = torch.Generator(device="cpu").manual_seed(N + D)
     x = torch.nn.functional.normalize(torch.randn(N, D, generator=g), dim=1)
@@ -308,6 +373,54 @@ def test_medoid_kernel_matches_plain(cuda_device, N, D):
     i = M.medoid_index(got)
     assert i == M.medoid_index(want) or \
         abs(float(want[i] - want.min())) <= 5e-2 + 1e-4 * float(want.min())
+
+
+@pytest.mark.parametrize("N", [600, 3000])
+def test_medoid_kernel_near_duplicate_rows(cuda_device, N):
+    """A class of jittered crops: one unit centre plus 1e-3 noise, 512-d, so
+    d² is a difference of nearly equal numbers. Against float64 direct
+    distances the kernel (3xTF32) is as close as the plain f32 version and
+    within the medoid's tolerance, and its member is as good as the plain
+    one's; one TF32 product would be off by more than the sums differ."""
+    g = torch.Generator(device="cpu").manual_seed(N)
+    centre = torch.nn.functional.normalize(
+        torch.randn(512, generator=g, dtype=torch.float64), dim=0)
+    x64 = (centre + 1e-3 * torch.randn(N, 512, generator=g,
+                                       dtype=torch.float64)).float().double()
+    ref = torch.cdist(x64.to(cuda_device), x64.to(cuda_device),
+                      compute_mode="donot_use_mm_for_euclid_dist").sum(1)
+    x = x64.float().to(cuda_device)
+    got = M.pairwise_distance_sums(x)
+    torch.cuda.synchronize()
+    plain = M.pairwise_distance_sums_plain(x)
+    tol = 5e-2 + 1e-4 * float(ref.min())
+    err = float((got.double() - ref).abs().max())
+    err_plain = float((plain.double() - ref).abs().max())
+    assert err <= tol and err <= 2 * err_plain + 1e-4 * float(ref.min())
+    best = float(ref.min())
+    assert float(ref[M.medoid_index(got)]) - best <= \
+        float(ref[M.medoid_index(plain)]) - best + 1e-3
+    assert torch.equal(M.pairwise_distance_sums(x), got)
+
+
+@pytest.mark.parametrize("N,slots", [(1000, 3), (1000, 1), (4097, 5)])
+def test_medoid_kernel_super_blocks(cuda_device, monkeypatch, N, slots):
+    """A scratch budget of a few row tiles: the launcher walks super-blocks
+    in one wrapper call, and the sums stay within the tolerance of the plain
+    version and of the one-super-block run, bit-identical run to run."""
+    g = torch.Generator(device="cpu").manual_seed(N)
+    x = torch.nn.functional.normalize(torch.randn(N, 64, generator=g), dim=1)
+    x = x.to(cuda_device)
+    whole = M.pairwise_distance_sums(x)
+    monkeypatch.setattr(M, "_SCRATCH_BYTES", slots * 4 * N)
+    before = M.KERNEL.launches
+    got = M.pairwise_distance_sums(x)
+    torch.cuda.synchronize()
+    assert M.KERNEL.launches == before + 1
+    torch.testing.assert_close(got, M.pairwise_distance_sums_plain(x),
+                               rtol=1e-4, atol=5e-2)
+    torch.testing.assert_close(got, whole, rtol=1e-5, atol=1e-3)
+    assert torch.equal(M.pairwise_distance_sums(x), got)
 
 
 def test_medoid_kernel_self_distance_is_zero(cuda_device):
