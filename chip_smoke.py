@@ -6,7 +6,7 @@ segment paths on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``csrc/`` (one nvcc per source, all
 started together), counts the tensor-core instructions of each
-tensor-core kernel (B1, B4, B6, B7), and holds each kernel against its
+tensor-core kernel (B1, B3, B4, B5, B6, B7), and holds each kernel against its
 plain PyTorch version at the shapes its path gives it. Then it drives
 four paths through the calls a user makes, at full width from seeded
 weights:
@@ -135,50 +135,83 @@ def cuda_graph_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-# The tensor-core kernels of each library, by their mangled names: the flash
-# kernels (B6/B7: f32 and bf16 x head width 32/64/128 x bias), the attention
-# core's forward (B1: f32 and bf16 x head width 32/64/128) and the medoid's
-# tile kernel (B4).
-HMMA_KERNELS = {
-    "attention": ("flash_fwd", r"I(13__nv_bfloat16|f)Li(\d+)ELb([01])E", 12),
-    "clip_attention": ("attn_core_fwd", r"I(13__nv_bfloat16|f)Li(\d+)E", 6),
-    "medoid": ("tile_sums", "", 1),
+def profiler_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of one call as ``torch.profiler`` sums it over the
+    kernels and copies of ``reps`` calls: for work that a CUDA graph cannot
+    capture (autograd's backward runs on its own thread) and that is shorter
+    than the host's cost of calling it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    if total_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return total_us / reps / 1e3
+
+
+# The tensor-core kernels of each library, by their mangled names, with the
+# number of instantiations and the instruction to count: the flash kernels
+# (B6/B7: f32 and bf16 x head width 32/64/128 x bias), the attention core's
+# forward and backward (B1, B5: f32 and bf16 x head width 32/64/128), the
+# medoid's tile kernel (B4) and the int4 scan (B3, on the int8 tensor cores).
+TENSOR_CORE_KERNELS = {
+    "attention": [
+        ("flash_fwd", r"flash_fwdI(13__nv_bfloat16|f)Li(\d+)ELb([01])E", 12,
+         "HMMA")],
+    "clip_attention": [
+        ("attn_core_fwd", r"attn_core_fwdI(13__nv_bfloat16|f)Li(\d+)E", 6,
+         "HMMA"),
+        ("attn_core_bwd", r"attn_core_bwdI(13__nv_bfloat16|f)Li(\d+)E", 6,
+         "HMMA")],
+    "medoid": [("tile_sums", "tile_sums", 1, "HMMA")],
+    "int4_scan": [("scan", "4scanE", 1, "IMMA")],
 }
 
 
 def hmma_phase(libraries) -> dict:
-    """Tensor-core instructions (HMMA, which is also what mma.sync on TF32
-    compiles to) in each tensor-core kernel of the built libraries, from
-    ``cuobjdump -sass``; every instantiation must have some."""
+    """Tensor-core instructions in each tensor-core kernel of the built
+    libraries, from ``cuobjdump -sass``: HMMA (which is also what mma.sync on
+    TF32 compiles to) or, for the int8 product, IMMA. Every instantiation
+    must have some."""
     import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
     for lib in libraries:
-        kernel, template, expected = HMMA_KERNELS[lib.name]
         sass = subprocess.run([tool, "-sass", str(lib.path)],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
-        counts, name = {}, None
-        for line in sass.splitlines():
-            fn = re.search(r"Function : (\S+)", line)
-            if fn:
-                kind = re.search(kernel + template, fn.group(1))
-                name = None
-                if kind:
-                    g = kind.groups()
-                    args = ["bf16" if g[0] != "f" else "f32", g[1]] + \
-                        [["no bias", "bias"][int(b)] for b in g[2:]] \
-                        if g else []
-                    name = kernel + (f"<{', '.join(args)}>" if args else "")
-                    counts[name] = 0
-            elif name and "HMMA" in line:
-                counts[name] += 1
-        if len(counts) != expected or not all(counts.values()):
-            raise AssertionError(
-                f"HMMA counts per kernel of {lib.path.name}: {counts}")
-        log("hmma", library=lib.path.name, hmma=counts)
+        counts = {}
+        for kernel, mangled, expected, instr in TENSOR_CORE_KERNELS[lib.name]:
+            found, name = {}, None
+            for line in sass.splitlines():
+                fn = re.search(r"Function : (\S+)", line)
+                if fn:
+                    kind = re.search(mangled, fn.group(1))
+                    name = None
+                    if kind:
+                        g = kind.groups()
+                        args = ["bf16" if g[0] != "f" else "f32", g[1]] + \
+                            [["no bias", "bias"][int(b)] for b in g[2:]] \
+                            if g else []
+                        name = kernel + \
+                            (f"<{', '.join(args)}>" if args else "")
+                        found[name] = 0
+                elif name and instr in line:
+                    found[name] += 1
+            if len(found) != expected or not all(found.values()):
+                raise AssertionError(
+                    f"{instr} counts per {kernel} kernel of {lib.path.name}: "
+                    f"{found}")
+            counts.update(found)
+        log("hmma", library=lib.path.name, tensor_core_instructions=counts)
         out[lib.name] = counts
     return out
 
@@ -234,15 +267,44 @@ def attention_phase(torch, F, CA, seed: int) -> dict:
     return out
 
 
-def attention_bwd_phase(torch, F, CA, seed: int) -> dict:
-    """B5 against its plain version at the training shape [64, 50, 2304]
-    with the output gradient [64, 50, 768], bf16 and f32. The library
-    yardstick is the backward alone of SDPA on the split q, k, v."""
-    B, T, H, D = 64, 50, 12, 64
-    W = H * D
+BWD_SHAPE = (64, 50, 12, 64)  # B, T, heads, head dim of a training step
+
+
+def attention_bwd_inputs(torch, seed: int):
+    """Seeded qkv [64, 50, 2304] and dO [64, 50, 768] in f32 on the card."""
+    B, T, H, D = BWD_SHAPE
     g = torch.Generator(device="cpu").manual_seed(seed + 8)
-    base = torch.randn(B, T, 3 * W, generator=g).cuda()
-    dbase = torch.randn(B, T, W, generator=g).cuda()
+    return (torch.randn(B, T, 3 * H * D, generator=g).cuda(),
+            torch.randn(B, T, H * D, generator=g).cuda())
+
+
+def attention_bwd_float64(torch, qkv, dout, heads):
+    """The backward's formulas in float64 on the inputs' values."""
+    B, T, W3 = qkv.shape
+    W = W3 // 3
+    D = W // heads
+    q, k, v = (t.double().view(B, T, heads, D).transpose(1, 2)
+               for t in qkv.split(W, dim=-1))
+    g = dout.double().view(B, T, heads, D).transpose(1, 2)
+    p = torch.softmax(q @ k.transpose(-1, -2) * D ** -0.5, dim=-1)
+    dp = g @ v.transpose(-1, -2)
+    dl = p * (dp - (dp * p).sum(-1, keepdim=True))
+    parts = (dl @ k * D ** -0.5, dl.transpose(-1, -2) @ q * D ** -0.5,
+             p.transpose(-1, -2) @ g)
+    return torch.cat([t.transpose(1, 2).reshape(B, T, W) for t in parts],
+                     dim=-1)
+
+
+def attention_bwd_phase(torch, CA, seed: int) -> dict:
+    """B5 against its plain version at the training shape [64, 50, 2304]
+    with the output gradient [64, 50, 768], bf16 and f32, and both against
+    float64, also with the logits scaled x30 (q * 30: rows close to
+    one-hot)."""
+    B, T, H, D = BWD_SHAPE
+    W = H * D
+    base, dbase = attention_bwd_inputs(torch, seed)
+    large = base.clone()
+    large[..., :W] *= 30
     out = {}
     for name, dtype in (("bfloat16", torch.bfloat16),
                         ("float32", torch.float32)):
@@ -253,31 +315,88 @@ def attention_bwd_phase(torch, F, CA, seed: int) -> dict:
         atol, rtol = BWD_TOLS[name]
         torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                    rtol=rtol)
+        if not torch.equal(CA.clip_attention_core_bwd(qkv, dout, H), got):
+            raise AssertionError("attention backward differs between runs")
+        ref = attention_bwd_float64(torch, qkv, dout, H)
+        err64 = float((got.double() - ref).abs().max())
+        plain_err64 = float((want.double() - ref).abs().max())
+        # Logits x30: held to float64, no farther from it than twice the
+        # plain version plus the tolerance's absolute part (times 3: dk
+        # grows with q).
+        big = large.to(dtype)
+        got_big = CA.clip_attention_core_bwd(big, dout, H)
+        ref_big = attention_bwd_float64(torch, big, dout, H)
+        big_err64 = float((got_big.double() - ref_big).abs().max())
+        big_plain_err64 = float((CA.clip_attention_core_bwd_plain(
+            big, dout, H).double() - ref_big).abs().max())
+        if not bool(torch.isfinite(got_big.float()).all()) or \
+                err64 > 2 * plain_err64 + atol or \
+                big_err64 > 2 * big_plain_err64 + 3 * atol:
+            raise AssertionError(
+                f"attention backward against float64 ({name}): kernel "
+                f"{err64}, plain {plain_err64}; logits x30: kernel "
+                f"{big_err64}, plain {big_plain_err64}")
+        del big, got_big, ref_big, ref
+        size = qkv.element_size()
+        # qkv and dO read once, dqkv written once; the logits and the four
+        # other products the formulas need (2 T^2 D each) and ~10 per logit
+        # for the softmax and dl.
+        n_bytes = B * T * (3 * W + W + 3 * W) * size
+        n_ops = B * H * (10 * T * T * D + 10 * T * T)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, name)
+        # As B1: the kernel is shorter than the host's cost of an eager
+        # call, so ms and plain_ms are device times from a CUDA graph's
+        # replay; the eager_ms beside them are events around 20 eager
+        # calls. library_ms comes from attention_bwd_library_phase.
+        out[name] = {
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "atol": atol, "rtol": rtol,
+            "err_vs_float64": err64, "plain_err_vs_float64": plain_err64,
+            "large_logits_err_vs_float64": big_err64,
+            "large_logits_plain_err_vs_float64": big_plain_err64,
+            "ms": cuda_graph_ms(torch, lambda: CA.clip_attention_core_bwd(
+                qkv, dout, H)),
+            "plain_ms": cuda_graph_ms(
+                torch, lambda: CA.clip_attention_core_bwd_plain(qkv, dout, H)),
+            "eager_ms": cuda_ms(torch, lambda: CA.clip_attention_core_bwd(
+                qkv, dout, H)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    log("attention_bwd_kernel_vs_plain", shape=[B, T, 3 * W], **out)
+    return out
+
+
+def attention_bwd_library_phase(torch, F, CA, seed: int, out: dict) -> None:
+    """B5's library yardstick, added to ``out``: the backward alone of SDPA
+    on the split q, k, v at the training shape. Autograd's backward cannot
+    be captured in a CUDA graph, so library_ms is the profiler's device
+    time of its kernels, and profiler_ms the kernel's own time taken the
+    same way. It runs after every path, so that nothing the profiler may
+    leave attached to the process can touch the paths' host-side times."""
+    B, T, H, D = BWD_SHAPE
+    W = H * D
+    base, dbase = attention_bwd_inputs(torch, seed)
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        qkv, dout = base.to(dtype), dbase.to(dtype)
         x = qkv.clone().requires_grad_(True)
         q, k, v = (t.view(B, T, H, D).transpose(1, 2)
                    for t in x.split(W, dim=-1))
         sdpa = F.scaled_dot_product_attention(q, k, v)
         d_heads = dout.view(B, T, H, D).transpose(1, 2)
-        size = qkv.element_size()
-        # qkv and dO read once, dqkv written once; recompute of the logits
-        # plus the four products (2 T^2 D each) and ~10 per logit for the
-        # softmax and dl.
-        n_bytes = B * T * (3 * W + W + 3 * W) * size
-        n_ops = B * H * (10 * T * T * D + 10 * T * T)
-        b_ms, b_by = bound_ms(n_bytes, n_ops, name)
-        out[name] = {
-            "max_abs_err": float((got.float() - want.float()).abs().max()),
-            "atol": atol, "rtol": rtol,
-            "ms": cuda_ms(torch, lambda: CA.clip_attention_core_bwd(
-                qkv, dout, H)),
-            "plain_ms": cuda_ms(
-                torch, lambda: CA.clip_attention_core_bwd_plain(qkv, dout, H)),
-            "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
-                sdpa, (q, k, v), d_heads, retain_graph=True)),
-            "bound_ms": b_ms, "bound_by": b_by,
-        }
-    log("attention_bwd_kernel_vs_plain", shape=[B, T, 3 * W], **out)
-    return out
+
+        def library():
+            return torch.autograd.grad(sdpa, (q, k, v), d_heads,
+                                       retain_graph=True)
+        out[name].update(
+            library_eager_ms=cuda_ms(torch, library),
+            library_ms=profiler_ms(torch, library),
+            profiler_ms=profiler_ms(
+                torch, lambda: CA.clip_attention_core_bwd(qkv, dout, H)))
+    log("attention_bwd_library", shape=[B, T, 3 * W], **{
+        name: {k: out[name][k] for k in (
+            "ms", "profiler_ms", "library_ms", "library_eager_ms")}
+        for name in out})
 
 
 def flash_phase(torch, F, A, seed: int) -> dict:
@@ -1364,10 +1483,10 @@ def main(argv=None) -> int:
     cuda_lib.build_all(libraries)
     log("build", seconds=time.perf_counter() - t,
         libraries=[lib.path.name for lib in libraries])
-    hmma_phase([A.KERNEL, CA.KERNEL, M.KERNEL])
+    hmma_phase([A.KERNEL, CA.KERNEL, M.KERNEL, S4.KERNEL])
 
     attn = attention_phase(torch, F, CA, args.seed)
-    attn_bwd = attention_bwd_phase(torch, F, CA, args.seed)
+    attn_bwd = attention_bwd_phase(torch, CA, args.seed)
     flash = flash_phase(torch, F, A, args.seed)
     torch.cuda.empty_cache()
     scan = scan_phase(torch, S, args.seed)
@@ -1438,6 +1557,8 @@ def main(argv=None) -> int:
                              "forwards")
     segment_checks(torch, np, port, predictor, img, args.seed)
     del predictor
+    torch.cuda.empty_cache()
+    attention_bwd_library_phase(torch, F, CA, args.seed, attn_bwd)
 
     def row(name, kid, source, replaces, res, shape, **extra):
         paths = {path: counts[kid] for path, counts in by_path.items()}

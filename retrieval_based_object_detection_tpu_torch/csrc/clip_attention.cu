@@ -16,10 +16,11 @@
 // in bf16 a forward reads 14.7 MB of qkv and writes 4.9 MB, about 6 us at
 // 3.35 TB/s; its 0.5 GFLOP are 0.5 us on the bf16 tensor cores and 3 us at
 // 3xTF32's rate. The backward reads qkv and dO and writes dqkv, 34.4 MB
-// (about 10 us), for about 1.2 GFLOP. So the forward must keep many blocks'
-// loads in flight and spend few instructions per byte. Measured on an H100
-// at that shape: 15 us in bf16 and 30 us in f32 (the CUDA-core kernel this
-// replaced: 108 and 129 us).
+// (about 10 us), for about 1.7 GFLOP as it is done here. So both must keep
+// many blocks' loads in flight and spend few instructions per byte. Measured
+// on an H100 at that shape, forward: 15 us in bf16 and 30 us in f32 (the
+// CUDA-core kernel this replaced: 108 and 129 us); backward: 34 us in bf16
+// and 89 us in f32 (the CUDA-core kernel this replaced: 218 and 230 us).
 //
 // Forward design: one block of 4 warps per (image, head), both products on
 // the tensor cores by mma.sync (the building blocks of mma.cuh, shared with
@@ -60,17 +61,40 @@
 //   stored as 16-byte vectors into out[b, t, h D : (h + 1) D]; query rows
 //   past T compute but are not stored. T is never padded in device memory.
 //
-// Backward design: the same block per (image, head). q, k, v and g = dO of
-// the head are widened to f32 in shared memory (4 T (D+1) floats, 52 KB at
-// T = 50), then p = softmax(q k^T * scale) and dp = g v^T are formed together
-// in two [T, T + 1] f32 buffers (20 KB). One warp per row turns dp into
-// dl = p (dp - rowsum(dp p)). The last pass gives, for each (t, d),
-// dq = scale * dl[t, :] k[:, d], dk = scale * dl[:, t] q[:, d] and
-// dv = p[:, t] g[:, d] (the transposed products read the [T, T] buffers by
-// column), and writes the three into the q, k and v thirds of the packed row
-// for head h. Every (image, head) owns its slices, so there are no atomics.
-// As in the Pallas kernel everything stays f32 (p is not rounded) and the
-// result is cast once, at the store.
+// Backward design: the same block of 4 warps per (image, head), every product
+// on the tensor cores, and no [T, T] matrix in shared memory.
+// - q, k, v of the head and the head's g = dO slice go into shared memory
+//   once, in the input type, by 16-byte cp.async, all four at the Q/K row
+//   stride (+8 elements), zero past T and past D: 36 KB a block at ViT-B/32
+//   in bf16 (the CUDA-core kernel this replaced widened them to f32 and kept
+//   two [T, T + 1] buffers: 72 KB).
+// - Two orientations, so that each transposed product takes its A operand
+//   from accumulators. In orientation A a warp owns 16 query rows: s = q k^T
+//   and dp = g v^T in accumulators, the row max m and row sum l as in the
+//   forward, p = e / l in f32 (never rounded), delta = rowsum(dp p) by quad
+//   shuffles, dl = p (dp - delta), then dq = dl k with dl's accumulators as
+//   the A fragment. m, l and delta of every row go to a small shared array.
+//   After one __syncthreads, in orientation B a warp owns 16 keys: s^T = k q^T
+//   and dp^T = v g^T, 16 queries at a time, p^T and dl^T rebuilt from the
+//   stored m, l, delta of each column's query by the same expression (keys
+//   and queries past T give p = 0), then dv = p^T g and dk = dl^T q. Seven
+//   products in place of five; the two extra ones cost less than a [T, T]
+//   round trip through shared memory and its transposed fragment loads.
+// - Arithmetic that keeps the f32 contract. bf16 inputs: s and dp have two
+//   bf16 operands, one mma (products exact, f32 sums). p and dl are f32
+//   values: each is split into bf16 hi = rn(x) and lo = rn(x - hi) and
+//   multiplied by two mma (the dropped part is 2^-17 of the term, far under
+//   the store's 2^-9); rounding p or dl to bf16 once would be another
+//   function. f32 inputs: 3xTF32 with the running sum outside the tensor
+//   core (mma_3xtf32_rn) for every product.
+// - T <= 64 keeps the one key tile's s and dp in registers through the three
+//   steps (m and l; delta; dl and dq); longer T forms them again per step.
+// - dq goes from the accumulators straight into the q third of the packed
+//   rows (its q and g rows are still operands of orientation B, so nothing
+//   may be staged over them). dk and dv are staged in the warp's own k and v
+//   rows, which no other warp reads after the barrier, and leave as 16-byte
+//   vectors. Every (image, head) owns its slices: no atomics, the same bits
+//   every run. Rows past T compute but are not stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,9 +108,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // the backward's block
-
-constexpr int kFwdWarps = 4;
+constexpr int kFwdWarps = 4;  // both kernels' block
 constexpr int kFwdThreads = 32 * kFwdWarps;
 constexpr int kBlockK = 64;       // keys per tile of logits
 constexpr int kNT = kBlockK / 8;  // 8-key tiles of S per key tile
@@ -102,36 +124,246 @@ __host__ __device__ constexpr int v_stride(int d) {
   return d + (std::is_same<T, float>::value ? 4 : 8);
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// s[n] = the 16 rows at xt (A fragments) times the kN x 8 rows at yt (B
+// fragments), summed over the head dims: s[n][0..1] are row gq, columns
+// 8n + 2tq and + 1 of the 16 x 8kN product X Y^T, s[n][2..3] row gq + 8.
+// Both arrays have rows of kLd elements. bf16: Q-like rows by ldmatrix as
+// the A fragment, K-like rows by ldmatrix (kN even). f32: the k8 chunk's
+// columns tq and tq + 4 hold head dims 2tq and 2tq + 1 of both operands (any
+// order of the dims gives the same dots), so each fragment pair is one
+// 8-byte load.
+template <typename T, int kD, int kN>
+__device__ __forceinline__ void dots_nt(float (&s)[kN][4], const T* xt,
+                                        const T* yt, int nk16, int nd8,
+                                        int lane) {
+  constexpr int kLd = qk_stride(kD);
+  const int gq = lane >> 2, tq = lane & 3, mi = lane >> 3;
+#pragma unroll
+  for (int n = 0; n < kN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int arow = (lane & 7) + ((mi & 1) ? 8 : 0);
+    const int acol = (mi & 2) ? 8 : 0;
+    const int krow = (lane & 7) + ((mi & 2) ? 8 : 0);
+    const int kcol = (mi & 1) ? 8 : 0;
+#pragma unroll
+    for (int kc = 0; kc < kD / 16; ++kc) {
+      if (kc < nk16) {
+        uint32_t a[4];
+        ldmatrix_x4(a, xt + arow * kLd + kc * 16 + acol);
+#pragma unroll
+        for (int np = 0; np < kN / 2; ++np) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, yt + (np * 16 + krow) * kLd + kc * 16 + kcol);
+          mma_bf16(s[2 * np], a, kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], a, kb[2], kb[3]);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kc = 0; kc < kD / 8; ++kc) {
+      if (kc < nd8) {
+        const float2 qa = *reinterpret_cast<const float2*>(
+            xt + gq * kLd + kc * 8 + 2 * tq);
+        const float2 qb = *reinterpret_cast<const float2*>(
+            xt + (gq + 8) * kLd + kc * 8 + 2 * tq);
+        uint32_t ah[4], al[4];
+        split_tf32(qa.x, ah[0], al[0]);
+        split_tf32(qb.x, ah[1], al[1]);
+        split_tf32(qa.y, ah[2], al[2]);
+        split_tf32(qb.y, ah[3], al[3]);
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          const float2 kv = *reinterpret_cast<const float2*>(
+              yt + (n * 8 + gq) * kLd + kc * 8 + 2 * tq);
+          mma_3xtf32_rn(s[n], ah, al, kv.x, kv.y);
+        }
+      }
+    }
+  }
 }
 
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+// o += P Y: P is the 16 x 8kN matrix that lies in the accumulators p (the
+// layout dots_nt leaves), Y the 8kN rows at yt (rows of kLdY elements), so
+// the accumulators are the A fragment and P never passes through shared
+// memory. bf16: the accumulators of two adjacent 8-column tiles are one k16
+// A fragment, Y by ldmatrix.trans; with kSplit each f32 value goes in as bf16
+// hi + lo (two mma), without it rounded to bf16 once. f32 (3xTF32): columns
+// in the order 2tq, 2tq + 1, and Y's rows read in the same order; output
+// tiles go in pairs: column gq of tiles 2p and 2p + 1 is head dim 16p + 2gq
+// and 16p + 2gq + 1, so their B values are one 8-byte load, and the thread's
+// accumulators hold dims 16p + 4tq .. + 3.
+template <typename T, int kD, int kLdY, int kN, bool kSplit>
+__device__ __forceinline__ void acc_nn(float (&o)[kD / 8][4],
+                                       const float (&p)[kN][4], const T* yt,
+                                       int nk16, int lane) {
+  const int gq = lane >> 2, tq = lane & 3, mi = lane >> 3;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int vrow = (lane & 7) + ((mi & 1) ? 8 : 0);
+    const int vcol = (mi & 2) ? 8 : 0;
+#pragma unroll
+    for (int kc = 0; kc < kN / 2; ++kc) {
+      uint32_t a[4], al[4];
+      if constexpr (kSplit) {
+        split_bf16(p[2 * kc][0], p[2 * kc][1], a[0], al[0]);
+        split_bf16(p[2 * kc][2], p[2 * kc][3], a[1], al[1]);
+        split_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1], a[2], al[2]);
+        split_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3], a[3], al[3]);
+      } else {
+        a[0] = pack_bf16(p[2 * kc][0], p[2 * kc][1]);
+        a[1] = pack_bf16(p[2 * kc][2], p[2 * kc][3]);
+        a[2] = pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]);
+        a[3] = pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < kD / 16; ++dp) {
+        if (dp < nk16) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, yt + (kc * 16 + vrow) * kLdY + dp * 16 + vcol);
+          if constexpr (kSplit) {
+            mma_bf16(o[2 * dp], al, vb[0], vb[1]);
+            mma_bf16(o[2 * dp + 1], al, vb[2], vb[3]);
+          }
+          mma_bf16(o[2 * dp], a, vb[0], vb[1]);
+          mma_bf16(o[2 * dp + 1], a, vb[2], vb[3]);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      uint32_t ah[4], al[4];
+      split_tf32(p[n][0], ah[0], al[0]);
+      split_tf32(p[n][2], ah[1], al[1]);
+      split_tf32(p[n][1], ah[2], al[2]);
+      split_tf32(p[n][3], ah[3], al[3]);
+      const float* yr = yt + (n * 8 + 2 * tq) * kLdY + 2 * gq;
+#pragma unroll
+      for (int dp = 0; dp < kD / 16; ++dp) {
+        if (dp < nk16) {
+          const float2 v0 = *reinterpret_cast<const float2*>(yr + 16 * dp);
+          const float2 v1 =
+              *reinterpret_cast<const float2*>(yr + kLdY + 16 * dp);
+          mma_3xtf32_rn(o[2 * dp], ah, al, v0.x, v1.x);
+          mma_3xtf32_rn(o[2 * dp + 1], ah, al, v0.y, v1.y);
+        }
+      }
+    }
+  }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// The warp's 16 x D accumulators o (acc_nn's layout), times mul, into the 16
+// rows of kLd elements at st.
+template <typename T, int kD, int kLd>
+__device__ __forceinline__ void stage_rows(T* st, const float (&o)[kD / 8][4],
+                                           float mul, int nk16, int nd8,
+                                           int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+#pragma unroll
+    for (int dt = 0; dt < kD / 8; ++dt) {
+      if (dt < nd8) {
+        const int c = dt * 8 + 2 * tq;
+        store2<T>(st + gq * kLd + c, o[dt][0] * mul, o[dt][1] * mul);
+        store2<T>(st + (gq + 8) * kLd + c, o[dt][2] * mul, o[dt][3] * mul);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int dp = 0; dp < kD / 16; ++dp) {
+      if (dp < nk16) {
+        const int c = dp * 16 + 4 * tq;
+        *reinterpret_cast<float4*>(st + gq * kLd + c) =
+            make_float4(o[2 * dp][0] * mul, o[2 * dp + 1][0] * mul,
+                        o[2 * dp][1] * mul, o[2 * dp + 1][1] * mul);
+        *reinterpret_cast<float4*>(st + (gq + 8) * kLd + c) =
+            make_float4(o[2 * dp][2] * mul, o[2 * dp + 1][2] * mul,
+                        o[2 * dp][3] * mul, o[2 * dp + 1][3] * mul);
+      }
+    }
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// The staged 16 rows at st, as 16-byte vectors, into rows r0 .. r0 + 15 of
+// dst (row stride ld_dst elements); rows past seq are not stored.
+template <typename T, int kLd>
+__device__ __forceinline__ void copy_rows_out(T* dst, size_t ld_dst,
+                                              const T* st, int r0, int seq,
+                                              int head_dim, int lane) {
+  constexpr int kCh = 16 / sizeof(T);
+  const int row_ch = head_dim / kCh;
+  for (int i = lane; i < 16 * row_ch; i += 32) {
+    const int r = i / row_ch, c = (i % row_ch) * kCh;
+    if (r0 + r < seq)
+      *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * ld_dst + c) =
+          *reinterpret_cast<const uint4*>(st + r * kLd + c);
+  }
+}
+
+// Keys (columns) k0 + 8n + 2tq + j at or past seq to -inf.
+__device__ __forceinline__ void mask_keys(float (&s)[kNT][4], int k0, int seq,
+                                          int tq) {
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (k0 + n * 8 + 2 * tq + j >= seq) s[n][j] = s[n][2 + j] = -INFINITY;
+    }
+  }
+}
+
+// One key tile's step of the softmax statistics: the running row max m (raw
+// units) and row sum l of 2^((s - m) c2), for rows gq (index 0) and gq + 8
+// (index 1) of the warp's 16; l is still to be summed over the quad. The
+// running max starts at -1e30, so the first rescale is exactly 0, never a
+// NaN.
+__device__ __forceinline__ void row_stats_step(const float (&s)[kNT][4],
+                                               float (&m)[2], float (&l)[2],
+                                               float c2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    const float m_new = fmaxf(m[hh], mx[hh]);
+    l[hh] *= fast_exp2((m[hh] - m_new) * c2);
+    m[hh] = m_new;
+  }
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      l[e >> 1] += fast_exp2((s[n][e] - m[e >> 1]) * c2);
+  }
+}
+
+// The sum of x over the quad of lanes that share a fragment row.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// s -> p = 2^((s - m) c2) / l in place.
+__device__ __forceinline__ void probabilities(float (&s)[kNT][4],
+                                              const float (&m)[2],
+                                              const float (&l)[2], float c2) {
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[n][e] = __fdiv_rn(fast_exp2((s[n][e] - m[e >> 1]) * c2), l[e >> 1]);
+  }
 }
 
 template <typename T, int kD>
 __global__ void __launch_bounds__(kFwdThreads)
     attn_core_fwd(const T* __restrict__ qkv, T* __restrict__ out, int seq,
                   int heads, int head_dim, float scale) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int kLdK = qk_stride(kD);    // Q and K rows, elements
   constexpr int kLdV = v_stride<T>(kD);  // V rows, elements
   constexpr int kDT = kD / 8;            // 8-wide head-dim tiles
@@ -146,7 +378,7 @@ __global__ void __launch_bounds__(kFwdThreads)
   T* vs = ks + rows * kLdK;            // [rows][kLdV]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane >> 2, tq = lane & 3;  // fragment row and column group
+  const int tq = lane & 3;  // the lane's column group in a fragment
   const int b = blockIdx.x / heads;
   const int h = blockIdx.x % heads;
   const int width = heads * head_dim;
@@ -170,7 +402,6 @@ __global__ void __launch_bounds__(kFwdThreads)
   const int nk16 = (head_dim + 15) / 16;  // 16-wide head-dim chunks
   const int nd8 = head_dim / 8;           // 8-wide head-dim chunks
   const float c2 = scale * kLog2e;        // exp(x scale) = 2^(x c2)
-  const int mi = lane >> 3;               // ldmatrix: this lane's 8x8 matrix
   const int mtiles = (seq + 15) / 16;
   T* dst = out + (size_t)b * seq * width + h * head_dim;
 
@@ -181,98 +412,20 @@ __global__ void __launch_bounds__(kFwdThreads)
     // s = the raw dots of the warp's 16 rows with the 64 keys of tile t;
     // keys past T at -inf.
     auto logits = [&](int t, float (&s)[kNT][4]) {
-      const T* kt = ks + t * kBlockK * kLdK;
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      if constexpr (kBf16) {
-        const int arow = (lane & 7) + ((mi & 1) ? 8 : 0);
-        const int acol = (mi & 2) ? 8 : 0;
-        const int krow = (lane & 7) + ((mi & 2) ? 8 : 0);
-        const int kcol = (mi & 1) ? 8 : 0;
-#pragma unroll
-        for (int kc = 0; kc < kD / 16; ++kc) {
-          if (kc < nk16) {
-            uint32_t a[4];
-            ldmatrix_x4(a, qt + arow * kLdK + kc * 16 + acol);
-#pragma unroll
-            for (int np = 0; np < kNT / 2; ++np) {
-              uint32_t kb[4];
-              ldmatrix_x4(kb, kt + (np * 16 + krow) * kLdK + kc * 16 + kcol);
-              mma_bf16(s[2 * np], a, kb[0], kb[1]);
-              mma_bf16(s[2 * np + 1], a, kb[2], kb[3]);
-            }
-          }
-        }
-      } else {
-        // The k8 chunk's columns tq and tq + 4 hold head dims 2tq and
-        // 2tq + 1 of Q and K alike (any order of the dims gives the same
-        // dots), so each fragment pair is one 8-byte load.
-#pragma unroll
-        for (int kc = 0; kc < kD / 8; ++kc) {
-          if (kc < nd8) {
-            const float2 qa = *reinterpret_cast<const float2*>(
-                qt + gq * kLdK + kc * 8 + 2 * tq);
-            const float2 qb = *reinterpret_cast<const float2*>(
-                qt + (gq + 8) * kLdK + kc * 8 + 2 * tq);
-            uint32_t ah[4], al[4];
-            split_tf32(qa.x, ah[0], al[0]);
-            split_tf32(qb.x, ah[1], al[1]);
-            split_tf32(qa.y, ah[2], al[2]);
-            split_tf32(qb.y, ah[3], al[3]);
-#pragma unroll
-            for (int n = 0; n < kNT; ++n) {
-              const float2 kv = *reinterpret_cast<const float2*>(
-                  kt + (n * 8 + gq) * kLdK + kc * 8 + 2 * tq);
-              mma_3xtf32_rn(s[n], ah, al, kv.x, kv.y);
-            }
-          }
-        }
-      }
-      const int k0 = t * kBlockK;
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (k0 + n * 8 + 2 * tq + j >= seq)
-            s[n][j] = s[n][2 + j] = -INFINITY;
-        }
-      }
+      dots_nt<T, kD, kNT>(s, qt, ks + t * kBlockK * kLdK, nk16, nd8, lane);
+      mask_keys(s, t * kBlockK, seq, tq);
     };
 
-    // Pass 1: row max m (raw units) and row sum l of 2^((s - m) c2). Rows gq
-    // (index 0) and gq + 8 (index 1) of the warp's 16. The running max
-    // starts at -1e30, so the first rescale is exactly 0, never a NaN.
+    // Pass 1: the row max m and the row sum l over the key tiles.
     float s[kNT][4];
     float m[2] = {-1e30f, -1e30f};
     float l[2] = {0.f, 0.f};
     for (int t = 0; t < ntiles; ++t) {
       logits(t, s);
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-      }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-        const float m_new = fmaxf(m[hh], mx[hh]);
-        l[hh] *= fast_exp2((m[hh] - m_new) * c2);
-        m[hh] = m_new;
-      }
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          l[e >> 1] += fast_exp2((s[n][e] - m[e >> 1]) * c2);
-      }
+      row_stats_step(s, m, l, c2);
     }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
-      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
-    }
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
 
     // Pass 2: p = e / l, rounded to the input type, times V. One key tile:
     // s still holds its logits.
@@ -282,113 +435,52 @@ __global__ void __launch_bounds__(kFwdThreads)
       o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
     for (int t = 0; t < ntiles; ++t) {
       if (ntiles > 1) logits(t, s);
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[n][e] = __fdiv_rn(fast_exp2((s[n][e] - m[e >> 1]) * c2),
-                              l[e >> 1]);
-      }
-      const T* vt = vs + t * kBlockK * kLdV;
-      if constexpr (kBf16) {
-        const int vrow = (lane & 7) + ((mi & 1) ? 8 : 0);
-        const int vcol = (mi & 2) ? 8 : 0;
-#pragma unroll
-        for (int kc = 0; kc < kNT / 2; ++kc) {
-          const uint32_t a[4] = {
-              pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-          for (int dp = 0; dp < kD / 16; ++dp) {
-            if (dp < nk16) {
-              uint32_t vb[4];
-              ldmatrix_x4_trans(vb, vt + (kc * 16 + vrow) * kLdV + dp * 16 +
-                                        vcol);
-              mma_bf16(o[2 * dp], a, vb[0], vb[1]);
-              mma_bf16(o[2 * dp + 1], a, vb[2], vb[3]);
-            }
-          }
-        }
-      } else {
-        // Keys in the order 2tq, 2tq + 1: the accumulator is the A
-        // fragment, and V's rows are read in the same order. Output tiles
-        // go in pairs: column gq of tiles 2p and 2p + 1 is head dim
-        // 16p + 2gq and 16p + 2gq + 1, so their B values are one 8-byte
-        // load, and the thread's accumulators hold dims 16p + 4tq .. + 3.
-#pragma unroll
-        for (int n = 0; n < kNT; ++n) {
-          uint32_t ah[4], al[4];
-          split_tf32(s[n][0], ah[0], al[0]);
-          split_tf32(s[n][2], ah[1], al[1]);
-          split_tf32(s[n][1], ah[2], al[2]);
-          split_tf32(s[n][3], ah[3], al[3]);
-          const float* vr = vt + (n * 8 + 2 * tq) * kLdV + 2 * gq;
-#pragma unroll
-          for (int dp = 0; dp < kD / 16; ++dp) {
-            if (dp < nk16) {
-              const float2 v0 = *reinterpret_cast<const float2*>(vr + 16 * dp);
-              const float2 v1 =
-                  *reinterpret_cast<const float2*>(vr + kLdV + 16 * dp);
-              mma_3xtf32_rn(o[2 * dp], ah, al, v0.x, v1.x);
-              mma_3xtf32_rn(o[2 * dp + 1], ah, al, v0.y, v1.y);
-            }
-          }
-        }
-      }
+      probabilities(s, m, l, c2);
+      acc_nn<T, kD, kLdV, kNT, false>(o, s, vs + t * kBlockK * kLdV, nk16,
+                                      lane);
     }
 
     // The 16 x D outputs through the warp's own Q rows (no other warp reads
     // them), then 16-byte stores into the merged layout.
     __syncwarp();
-    if constexpr (kBf16) {
-#pragma unroll
-      for (int dt = 0; dt < kDT; ++dt) {
-        if (dt < nd8) {
-          const int c = dt * 8 + 2 * tq;
-          store2<T>(qt + gq * kLdK + c, o[dt][0], o[dt][1]);
-          store2<T>(qt + (gq + 8) * kLdK + c, o[dt][2], o[dt][3]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int dp = 0; dp < kD / 16; ++dp) {
-        if (dp < nk16) {
-          const int c = dp * 16 + 4 * tq;
-          *reinterpret_cast<float4*>(qt + gq * kLdK + c) = make_float4(
-              o[2 * dp][0], o[2 * dp + 1][0], o[2 * dp][1], o[2 * dp + 1][1]);
-          *reinterpret_cast<float4*>(qt + (gq + 8) * kLdK + c) = make_float4(
-              o[2 * dp][2], o[2 * dp + 1][2], o[2 * dp][3], o[2 * dp + 1][3]);
-        }
-      }
-    }
+    stage_rows<T, kD, kLdK>(qt, o, 1.f, nk16, nd8, lane);
     __syncwarp();
-    const int row_ch = head_dim / kCh;
-    for (int i = lane; i < 16 * row_ch; i += 32) {
-      const int r = i / row_ch, c = (i % row_ch) * kCh;
-      if (r0 + r < seq)
-        *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * width + c) =
-            *reinterpret_cast<const uint4*>(qt + r * kLdK + c);
-    }
+    copy_rows_out<T, kLdK>(dst, width, qt, r0, seq, head_dim, lane);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// Blocks an SM that the backward's registers leave room for. f32 at head
+// widths to 64 needs 175 registers unbounded, which fits two blocks where the
+// shared memory (74 KB at T <= 64) fits three; held to three (170
+// registers, no spills) it took 0.089 against 0.107 ms at [64, 50, 2304].
+// bf16 (155 registers, three blocks) is slower when held to four.
+template <typename T, int kD>
+constexpr int kBwdBlocks = (std::is_same<T, float>::value && kD <= 64) ? 3 : 1;
+
+template <typename T, int kD>
+__global__ void __launch_bounds__(kFwdThreads, kBwdBlocks<T, kD>)
     attn_core_bwd(const T* __restrict__ qkv, const T* __restrict__ dout,
                   T* __restrict__ dqkv, int seq, int heads, int head_dim,
                   float scale) {
-  extern __shared__ float smem[];
-  const int ld = head_dim + 1;  // padded stride of the q, k, v, g rows
-  const int lp = seq + 1;       // padded stride of the [T, T] rows
-  float* qs = smem;
-  float* ks = qs + seq * ld;
-  float* vs = ks + seq * ld;
-  float* gs = vs + seq * ld;
-  float* ps = gs + seq * ld;  // [seq, lp]: logits, then probabilities
-  float* ds = ps + seq * lp;  // [seq, lp]: dp, then dl
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int kLd = qk_stride(kD);  // rows of q, k, v and g, elements
+  constexpr int kDT = kD / 8;
+  constexpr int kCh = 16 / sizeof(T);
+  constexpr int kRowCh = kD / kCh;
 
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  const int ntiles = (seq + kBlockK - 1) / kBlockK;
+  const int rows = ntiles * kBlockK;
+  T* qs = reinterpret_cast<T*>(bwd_smem);  // [rows][kLd] each
+  T* ks = qs + rows * kLd;
+  T* vs = ks + rows * kLd;
+  T* gs = vs + rows * kLd;
+  float* st_m = reinterpret_cast<float*>(gs + rows * kLd);  // [rows] each
+  float* st_l = st_m + rows;
+  float* st_d = st_l + rows;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, tq = lane & 3;
   const int b = blockIdx.x / heads;
   const int h = blockIdx.x % heads;
   const int width = heads * head_dim;
@@ -396,79 +488,171 @@ __global__ void __launch_bounds__(kThreads)
   const T* src = qkv + (size_t)b * seq * row3 + h * head_dim;
   const T* gsrc = dout + (size_t)b * seq * width + h * head_dim;
 
-  for (int i = threadIdx.x; i < seq * head_dim; i += blockDim.x) {
-    const int t = i / head_dim, d = i % head_dim;
-    const T* row = src + (size_t)t * row3 + d;
-    qs[t * ld + d] = to_float(row[0]);
-    ks[t * ld + d] = to_float(row[width]);
-    vs[t * ld + d] = to_float(row[2 * width]);
-    gs[t * ld + d] = to_float(gsrc[(size_t)t * width + d]);
+  // The head's q, k, v and g slices, zero past T and past D.
+  for (int i = threadIdx.x; i < rows * kRowCh; i += kFwdThreads) {
+    const int j = i / kRowCh, c = (i % kRowCh) * kCh;
+    const bool ok = j < seq && c < head_dim;
+    const T* p = src + (ok ? (size_t)j * row3 + c : 0);
+    cp_async16(qs + j * kLd + c, p, ok);
+    cp_async16(ks + j * kLd + c, p + width, ok);
+    cp_async16(vs + j * kLd + c, p + 2 * width, ok);
+    cp_async16(gs + j * kLd + c, gsrc + (ok ? (size_t)j * width + c : 0), ok);
   }
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
-  // logits[r, c] = (q_r . k_c) * scale and dp[r, c] = g_r . v_c.
-  for (int i = threadIdx.x; i < seq * seq; i += blockDim.x) {
-    const int r = i / seq, c = i % seq;
-    const float* q = qs + r * ld;
-    const float* k = ks + c * ld;
-    const float* g = gs + r * ld;
-    const float* v = vs + c * ld;
-    float acc = 0.f, dacc = 0.f;
-    for (int d = 0; d < head_dim; ++d) {
-      acc = fmaf(q[d], k[d], acc);
-      dacc = fmaf(g[d], v[d], dacc);
-    }
-    ps[r * lp + c] = acc * scale;
-    ds[r * lp + c] = dacc;
-  }
-  __syncthreads();
-
-  // Per row, one warp: p = softmax(logits), then dl = p (dp - sum(dp p)).
-  // Each lane reads back only the columns it wrote itself.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  for (int r = warp; r < seq; r += nwarps) {
-    float* prow = ps + r * lp;
-    float* drow = ds + r * lp;
-    float m = -INFINITY;
-    for (int c = lane; c < seq; c += 32) m = fmaxf(m, prow[c]);
-    m = warp_max(m);
-    float s = 0.f;
-    for (int c = lane; c < seq; c += 32) {
-      const float e = expf(prow[c] - m);
-      prow[c] = e;
-      s += e;
-    }
-    s = warp_sum(s);
-    float dot = 0.f;
-    for (int c = lane; c < seq; c += 32) {
-      const float p = prow[c] / s;
-      prow[c] = p;
-      dot = fmaf(drow[c], p, dot);
-    }
-    dot = warp_sum(dot);
-    for (int c = lane; c < seq; c += 32) drow[c] = prow[c] * (drow[c] - dot);
-  }
-  __syncthreads();
-
-  // dq[t, d] = scale * sum_j dl[t, j] k[j, d]
-  // dk[t, d] = scale * sum_j dl[j, t] q[j, d]   (dl^T q: column t of dl)
-  // dv[t, d] =         sum_j  p[j, t] g[j, d]   (p^T g:  column t of p)
-  // Neighbouring threads write neighbouring d of head h's slice in each of
-  // the q, k and v thirds of the packed row.
+  const int nk16 = (head_dim + 15) / 16;
+  const int nd8 = head_dim / 8;
+  const float c2 = scale * kLog2e;
+  const int mtiles = (seq + 15) / 16;  // 16-row tiles of queries, and of keys
   T* dst = dqkv + (size_t)b * seq * row3 + h * head_dim;
-  for (int i = threadIdx.x; i < seq * head_dim; i += blockDim.x) {
-    const int t = i / head_dim, d = i % head_dim;
-    float aq = 0.f, ak = 0.f, av = 0.f;
-    for (int j = 0; j < seq; ++j) {
-      aq = fmaf(ds[t * lp + j], ks[j * ld + d], aq);
-      ak = fmaf(ds[j * lp + t], qs[j * ld + d], ak);
-      av = fmaf(ps[j * lp + t], gs[j * ld + d], av);
+
+  // Orientation A: the warp owns 16 query rows.
+  for (int mt = warp; mt < mtiles; mt += kFwdWarps) {
+    const int r0 = mt * 16;
+    const T* qt = qs + r0 * kLd;
+    const T* gt = gs + r0 * kLd;
+    float s[kNT][4], dp[kNT][4];
+    auto logits = [&](int t) {
+      dots_nt<T, kD, kNT>(s, qt, ks + t * kBlockK * kLd, nk16, nd8, lane);
+      mask_keys(s, t * kBlockK, seq, tq);
+    };
+    auto dprobs = [&](int t) {
+      dots_nt<T, kD, kNT>(dp, gt, vs + t * kBlockK * kLd, nk16, nd8, lane);
+    };
+
+    // Step 1: m and l, as the forward takes them.
+    float m[2] = {-1e30f, -1e30f};
+    float l[2] = {0.f, 0.f};
+    for (int t = 0; t < ntiles; ++t) {
+      logits(t);
+      row_stats_step(s, m, l, c2);
     }
-    T* row = dst + (size_t)t * row3 + d;
-    row[0] = from_float<T>(aq * scale);
-    row[width] = from_float<T>(ak * scale);
-    row[2 * width] = from_float<T>(av);
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+
+    // Step 2: delta = rowsum(dp p). One key tile: s still holds its logits,
+    // and p and dp stay in registers for step 3.
+    float delta[2] = {0.f, 0.f};
+    for (int t = 0; t < ntiles; ++t) {
+      if (ntiles > 1) logits(t);
+      probabilities(s, m, l, c2);
+      dprobs(t);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          delta[e >> 1] = fmaf(dp[n][e], s[n][e], delta[e >> 1]);
+      }
+    }
+    delta[0] = quad_sum(delta[0]);
+    delta[1] = quad_sum(delta[1]);
+    if (tq == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        st_m[r0 + gq + 8 * hh] = m[hh];
+        st_l[r0 + gq + 8 * hh] = l[hh];
+        st_d[r0 + gq + 8 * hh] = delta[hh];
+      }
+    }
+
+    // Step 3: dl = p (dp - delta), dq = dl k.
+    float o[kDT][4];
+#pragma unroll
+    for (int dt = 0; dt < kDT; ++dt)
+      o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+    for (int t = 0; t < ntiles; ++t) {
+      if (ntiles > 1) {
+        logits(t);
+        probabilities(s, m, l, c2);
+        dprobs(t);
+      }
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] *= dp[n][e] - delta[e >> 1];
+      }
+      acc_nn<T, kD, kLd, kNT, true>(o, s, ks + t * kBlockK * kLd, nk16, lane);
+    }
+
+    // dq * scale from the accumulators into the q third: the warp's q and g
+    // rows are still read by every warp in orientation B.
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + gq + 8 * hh;
+      if (r < seq) {
+        T* row = dst + (size_t)r * row3;
+        if constexpr (kBf16) {
+#pragma unroll
+          for (int dt = 0; dt < kDT; ++dt) {
+            if (dt < nd8)
+              store2<T>(row + dt * 8 + 2 * tq, o[dt][2 * hh] * scale,
+                        o[dt][2 * hh + 1] * scale);
+          }
+        } else {
+#pragma unroll
+          for (int p2 = 0; p2 < kD / 16; ++p2) {
+            const int c = p2 * 16 + 4 * tq;
+            if (c < head_dim)
+              *reinterpret_cast<float4*>(row + c) = make_float4(
+                  o[2 * p2][2 * hh] * scale, o[2 * p2 + 1][2 * hh] * scale,
+                  o[2 * p2][2 * hh + 1] * scale,
+                  o[2 * p2 + 1][2 * hh + 1] * scale);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // m, l, delta of every row; k and v no longer B operands
+
+  // Orientation B: the warp owns 16 keys and walks the queries 16 at a time.
+  for (int kt = warp; kt < mtiles; kt += kFwdWarps) {
+    const int r0 = kt * 16;
+    T* ka = ks + r0 * kLd;  // the warp's k and v rows, later dk and dv
+    T* va = vs + r0 * kLd;
+    float dk[kDT][4], dv[kDT][4];
+#pragma unroll
+    for (int dt = 0; dt < kDT; ++dt) {
+      dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.f;
+      dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.f;
+    }
+    for (int qc = 0; qc < mtiles; ++qc) {
+      const T* qt = qs + qc * 16 * kLd;
+      const T* gt = gs + qc * 16 * kLd;
+      float st[2][4], dpt[2][4];  // s^T then p^T; dp^T then dl^T
+      dots_nt<T, kD, 2>(st, ka, qt, nk16, nd8, lane);
+      dots_nt<T, kD, 2>(dpt, va, gt, nk16, nd8, lane);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int j = qc * 16 + n * 8 + 2 * tq;  // the columns' queries
+        const float2 mj = *reinterpret_cast<const float2*>(st_m + j);
+        const float2 lj = *reinterpret_cast<const float2*>(st_l + j);
+        const float2 dj = *reinterpret_cast<const float2*>(st_d + j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool odd = e & 1;
+          const bool ok = j + (e & 1) < seq && r0 + gq + 8 * (e >> 1) < seq;
+          const float p = __fdiv_rn(
+              fast_exp2((st[n][e] - (odd ? mj.y : mj.x)) * c2),
+              odd ? lj.y : lj.x);
+          st[n][e] = ok ? p : 0.f;
+          dpt[n][e] = ok ? p * (dpt[n][e] - (odd ? dj.y : dj.x)) : 0.f;
+        }
+      }
+      acc_nn<T, kD, kLd, 2, true>(dv, st, gt, nk16, lane);
+      acc_nn<T, kD, kLd, 2, true>(dk, dpt, qt, nk16, lane);
+    }
+
+    // dk * scale and dv through the warp's own k and v rows (since the
+    // barrier only this warp reads them), then 16-byte stores.
+    __syncwarp();
+    stage_rows<T, kD, kLd>(ka, dk, scale, nk16, nd8, lane);
+    stage_rows<T, kD, kLd>(va, dv, 1.f, nk16, nd8, lane);
+    __syncwarp();
+    copy_rows_out<T, kLd>(dst + width, row3, ka, r0, seq, head_dim, lane);
+    copy_rows_out<T, kLd>(dst + 2 * width, row3, va, r0, seq, head_dim, lane);
   }
 }
 
@@ -485,6 +669,23 @@ int launch_fwd(const void* qkv, void* out, int batch, int seq, int heads,
   attn_core_fwd<T, kD><<<batch * heads, kFwdThreads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<T*>(out), seq, heads, head_dim,
       scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int kD>
+int launch_bwd(const void* qkv, const void* dout, void* dqkv, int batch,
+               int seq, int heads, int head_dim, float scale,
+               cudaStream_t stream) {
+  const int rows = (seq + kBlockK - 1) / kBlockK * kBlockK;
+  const size_t smem = (size_t)rows * 4 * qk_stride(kD) * sizeof(T) +
+                      (size_t)rows * 3 * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_core_bwd<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_core_bwd<T, kD><<<batch * heads, kFwdThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(dout),
+      static_cast<T*>(dqkv), seq, heads, head_dim, scale);
   return (int)cudaGetLastError();
 }
 
@@ -505,19 +706,18 @@ int launch(const void* qkv, void* out, int batch, int seq, int heads,
 }
 
 template <typename T>
-int launch_bwd(const void* qkv, const void* dout, void* dqkv, int batch,
-               int seq, int heads, int head_dim, float scale,
-               cudaStream_t stream) {
-  const size_t smem = (size_t)(4 * seq * (head_dim + 1) +
-                               2 * seq * (seq + 1)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_core_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_core_bwd<T><<<batch * heads, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout),
-      static_cast<T*>(dqkv), seq, heads, head_dim, scale);
-  return (int)cudaGetLastError();
+int launch_backward(const void* qkv, const void* dout, void* dqkv, int batch,
+                    int seq, int heads, int head_dim, float scale,
+                    cudaStream_t stream) {
+  if (head_dim % 8 != 0 || head_dim > 128) return (int)cudaErrorInvalidValue;
+  if (head_dim <= 32)
+    return launch_bwd<T, 32>(qkv, dout, dqkv, batch, seq, heads, head_dim,
+                             scale, stream);
+  if (head_dim <= 64)
+    return launch_bwd<T, 64>(qkv, dout, dqkv, batch, seq, heads, head_dim,
+                             scale, stream);
+  return launch_bwd<T, 128>(qkv, dout, dqkv, batch, seq, heads, head_dim,
+                            scale, stream);
 }
 
 }  // namespace
@@ -544,11 +744,11 @@ int clip_attention_bwd(const void* qkv, const void* dout, void* dqkv,
                        float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(qkv, dout, dqkv, batch, seq, heads, head_dim,
-                             scale, s);
+    return launch_backward<float>(qkv, dout, dqkv, batch, seq, heads,
+                                  head_dim, scale, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(qkv, dout, dqkv, batch, seq, heads,
-                                     head_dim, scale, s);
+    return launch_backward<__nv_bfloat16>(qkv, dout, dqkv, batch, seq, heads,
+                                          head_dim, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels in this
-// directory (attention.cu, clip_attention.cu, medoid.cu): asynchronous copies
-// into shared memory, ldmatrix, mma.sync for bf16 and TF32, the 3xTF32 split,
-// and small conversion helpers. Everything is a __device__ inline function,
+// directory (attention.cu, clip_attention.cu, medoid.cu, int4_scan.cu):
+// asynchronous copies into shared memory, ldmatrix, mma.sync for bf16, TF32
+// and int8, the 3xTF32 and bf16 hi/lo splits, and small conversion helpers. Everything is a __device__ inline function,
 // so each source that includes this header gets its own copy.
 
 #pragma once
@@ -77,6 +77,21 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b, a 16x32 int8 (row), b 32x8 int8 (col), d 16x8 int32, exact.
+// With g = lane / 4 and t = lane % 4: a[0] is row g, k 4t .. 4t + 3 (one
+// byte each, the lowest byte the lowest k), a[1] row g + 8 of the same k,
+// a[2] and a[3] the same rows at k 16 + 4t ..; b0 is column g, k 4t .. 4t + 3,
+// b1 column g, k 16 + 4t ..; d[0], d[1] are row g, columns 2t and 2t + 1,
+// d[2], d[3] row g + 8.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -157,6 +172,17 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Two f32 values as bf16 pairs hi = rn(x) and lo = rn(x - hi): hi + lo
+// carries 16 mantissa bits of x, so a product taken once with each differs
+// from the f32 product by 2^-17 of the term.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
 
 template <typename T>

@@ -60,9 +60,17 @@ class Gallery:
     # matmul wins on dispatch overhead.
     INT8_SCAN_MIN_ROWS = 131_072
 
-    # Standard serving keeps ~5 bytes/dim resident (f32 + int8 mirrors);
-    # past this budget a serving search routes to the capacity tier.
-    CAPACITY_AUTO_BYTES = 8 << 30
+    # Budget of the standard serving mirrors (f32 + int8, ~5 bytes/dim) on
+    # one 80 GB H100, kept for the capacity tier (ROADMAP.md queue A, item
+    # A.4), which auto search will route to past it. Of the card's 80 GB
+    # (74.5 GiB), 48 GiB go to the mirrors; the rest holds what a search
+    # allocates beside them at that size (the [16, N] f32 scores of a
+    # query batch and their top-k workspace, ~0.2 KB a row: 4 GiB at the
+    # 20M rows of 512-d that 48 GiB hold), the capacity view's packed rows
+    # while it is built from the f32 mirror (0.5 bytes/dim: 5 GiB), the
+    # models and the allocator's slack. Until A.4 lands auto search never
+    # picks "capacity": it stays on int8 (or bf16) past this size too.
+    CAPACITY_AUTO_BYTES = 48 << 30
 
     _SYNC_CHUNK = 4096  # rows per incremental device update
 
@@ -542,18 +550,15 @@ class Gallery:
         (half the int8 scan's bytes: per-row 4-bit packing, scale-
         compensated in the scan, the same f32 rescore — exact hit scores,
         a top-k SET approximate at the margin; even dims only), or None —
-        exact when ``exact=True``; else auto: capacity once the standard
-        mirrors exceed CAPACITY_AUTO_BYTES (not ported: raises), int8 on
-        CUDA at ≥INT8_SCAN_MIN_ROWS rows, bf16 below. "capacity" and
-        "sharded[_<tier>]" are not ported and raise.
+        exact when ``exact=True``; else auto: int8 on CUDA at
+        ≥INT8_SCAN_MIN_ROWS rows, bf16 below. Auto never picks "capacity"
+        while that tier is not ported (CAPACITY_AUTO_BYTES is kept for it);
+        "capacity" and "sharded[_<tier>]" asked for by name raise.
         """
         n = self._nrows
         if method is None:
             if exact:
                 method = "exact"
-            elif self.dim % 2 == 0 and n * self.dim * 5 > \
-                    self.CAPACITY_AUTO_BYTES:
-                method = "capacity"
             else:
                 method = ("int8" if n >= self.INT8_SCAN_MIN_ROWS
                           and self.device.type == "cuda" else "bf16")

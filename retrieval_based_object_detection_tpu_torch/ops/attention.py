@@ -101,6 +101,24 @@ def _smem_bytes(head_dim: int, dtype: torch.dtype, bias_cols: int) -> int:
     return smem
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """True when autograd would record a call on these tensors: gradient
+    mode is on and one of them requires a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels have no backward and write their output through a raw
+    pointer, so the result would carry no ``grad_fn``: raise rather than
+    cut the graph silently."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name} has no backward on CUDA tensors: its output would be "
+            "cut from the autograd graph. Differentiate the einsum path "
+            "instead (use_flash=False in the SAM encoder's forward), or "
+            "call it under torch.no_grad() / torch.inference_mode()")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            bias_cols: int) -> None:
     if q.device.type != "cuda":
@@ -133,11 +151,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Non-causal attention of [B, H, T, Dh] q, k, v → [B, H, T, Dh] in q's
-    dtype. CPU tensors take the plain version; CUDA tensors launch B7 or
-    raise."""
+    dtype. CPU tensors take the plain version (which autograd
+    differentiates); CUDA tensors launch B7 or raise, also when a gradient
+    of q, k or v is being recorded (B7 has no backward)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     _check(q, k, v, 0)
+    _refuse_grad("flash_attention", q, k, v)
     B, H, T, Dh = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -156,8 +176,9 @@ def flash_attention_2d_bias(q: torch.Tensor, k: torch.Tensor,
     """Attention of [B, H, T, Dh] q, k, v (T = grid_h · grid_w tokens in
     row-major grid order) with SAM's decomposed rel-pos bias from the f32
     tables ``bias_h`` [B, H, T, grid_h] and ``bias_w`` [B, H, T, grid_w] →
-    [B, H, T, Dh] in q's dtype. CPU tensors take the plain version; CUDA
-    tensors launch B6 or raise."""
+    [B, H, T, Dh] in q's dtype. CPU tensors take the plain version (which
+    autograd differentiates); CUDA tensors launch B6 or raise, also when
+    a gradient of any input is being recorded (B6 has no backward)."""
     B, H, T, Dh = q.shape
     if T != grid_h * grid_w:
         raise ValueError(f"T={T} is not grid_h·grid_w = {grid_h}·{grid_w}")
@@ -171,6 +192,7 @@ def flash_attention_2d_bias(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_2d_bias_plain(q, k, v, bias_h, bias_w,
                                              grid_h, grid_w)
     _check(q, k, v, grid_h + grid_w)
+    _refuse_grad("flash_attention_2d_bias", q, k, v, bias_h, bias_w)
     for name, t in (("bias_h", bias_h), ("bias_w", bias_w)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} is {t.dtype}; the bias tables are f32")

@@ -6,7 +6,8 @@ input projection emits it and returns the merged ``[B, T, W]`` attention
 output (before the out-projection). On a CUDA tensor it launches the
 hand-written forward in ``csrc/clip_attention.cu`` (bf16 on the tensor
 cores by ``mma.sync``, f32 by 3xTF32; head widths to 128 in multiples of
-8, any T whose q, k and v fit one block's shared memory); on a CPU
+8, any T whose q, k and v fit one block's shared memory; the backward the
+same with dO beside them); on a CPU
 tensor it runs ``clip_attention_core_plain``, the einsum path of the JAX
 tower, which tests and ``chip_smoke.py`` hold the kernel against.
 
@@ -97,14 +98,19 @@ def _fwd_smem_bytes(T: int, D: int, itemsize: int) -> int:
 
 
 def _bwd_smem_bytes(T: int, D: int, itemsize: int) -> int:
-    """Shared memory of one B5 block: q, k, v and dO widened to f32 at row
-    stride D + 1, and two [T, T + 1] f32 buffers."""
-    return 4 * (4 * T * (D + 1) + 2 * T * (T + 1))
+    """Shared memory of one B5 block (csrc/clip_attention.cu): the head's q,
+    k, v and dO rows in the input type, T padded to tiles of 64, the head
+    width to the kernel's instantiation (32, 64 or 128) plus 8 elements of
+    row padding, and the f32 row statistics m, l and delta."""
+    rows = -(-T // 64) * 64
+    kd = 32 if D <= 32 else 64 if D <= 64 else 128
+    return rows * 4 * (kd + 8) * itemsize + 3 * rows * 4
 
 
 def _check(qkv: torch.Tensor, heads: int, smem_bytes) -> None:
     """Raise on what the kernels do not take; ``smem_bytes(T, D, itemsize)``
-    is the shared memory one block of the kernel needs."""
+    is the shared memory one block of the kernel needs. Both copy 16-byte
+    chunks of each head's slice and multiply 8 dims at a time."""
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     if qkv.ndim != 3 or qkv.shape[2] % (3 * heads):
@@ -116,6 +122,11 @@ def _check(qkv: torch.Tensor, heads: int, smem_bytes) -> None:
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
     T, D = qkv.shape[1], qkv.shape[2] // (3 * heads)
+    if D % 8 or D > 128 or qkv.data_ptr() % 16:
+        raise ValueError(
+            f"D={D}: the kernels copy 16-byte chunks of each head's slice "
+            "and multiply 8 dims at a time (they need a 16-byte aligned qkv "
+            "and D % 8 == 0, D <= 128)")
     need = smem_bytes(T, D, qkv.element_size())
     if need > MAX_SMEM:
         raise ValueError(
@@ -130,11 +141,6 @@ def _forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     B, T, threeW = qkv.shape
     D = threeW // (3 * heads)
     _check(qkv, heads, _fwd_smem_bytes)
-    if D % 8 or D > 128 or qkv.data_ptr() % 16:
-        raise ValueError(
-            f"D={D}: the forward kernel copies 16-byte chunks of each head's "
-            "slice and multiplies 8 dims at a time (needs a 16-byte aligned "
-            "qkv and D % 8 == 0, D <= 128)")
     out = torch.empty((B, T, threeW // 3), dtype=qkv.dtype,
                       device=qkv.device)
     if B == 0 or T == 0:
@@ -157,11 +163,12 @@ def clip_attention_core_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     D = threeW // (3 * heads)
     _check(qkv, heads, _bwd_smem_bytes)
     if dout.shape != (B, T, threeW // 3) or dout.dtype != qkv.dtype \
-            or dout.device != qkv.device or not dout.is_contiguous():
+            or dout.device != qkv.device or not dout.is_contiguous() \
+            or dout.data_ptr() % 16:
         raise ValueError(
-            f"dout must be a contiguous {(B, T, threeW // 3)} {qkv.dtype} "
-            f"tensor on {qkv.device}, got {tuple(dout.shape)} {dout.dtype} "
-            f"on {dout.device}")
+            f"dout must be a contiguous, 16-byte aligned "
+            f"{(B, T, threeW // 3)} {qkv.dtype} tensor on {qkv.device}, got "
+            f"{tuple(dout.shape)} {dout.dtype} on {dout.device}")
     dqkv = torch.empty_like(qkv)
     if B == 0 or T == 0:
         return dqkv

@@ -10,7 +10,10 @@ rounded one at a time on both sides, so kernel and plain version agree bit
 for bit.
 
 On CUDA tensors it launches the hand-written kernel in
-``csrc/int4_scan.cu`` (any N; the ragged tile is masked in the kernel). On
+``csrc/int4_scan.cu``, which multiplies on the int8 tensor cores
+(``mma.sync.m16n8k32.s8``: 16 queries by 8 rows by 32 dims, exact in int32,
+the nibbles' bias of 8 taken off each sum afterwards; any N and any number
+of queries, the ragged ends masked in the kernel). On
 CPU tensors it runs ``int4_scan_scores_plain``, which unpacks with shifts
 and does an integer matmul; tests and ``chip_smoke.py`` hold the kernel
 against it.
@@ -33,8 +36,14 @@ KERNEL = CudaLibrary("int4_scan", {
                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 })
 
-_ROWS = 128     # rows per block (csrc/int4_scan.cu kRows)
-_QUERIES = 16   # queries per pass (kQueries)
+
+def _smem_bytes(dim: int) -> int:
+    """Shared memory of one block of ``csrc/int4_scan.cu``: 16 query rows
+    of two halves, each padded to a multiple of 64 dims, plus 64 bytes of
+    row padding, the 16 int32 query biases, and 4 warps' 16 x 40 int32
+    stages."""
+    half_pad = -(-(dim // 2) // 64) * 64
+    return 16 * (2 * half_pad + 64) + 4 * (16 + 4 * 16 * 40)
 
 
 def _check_exact(dim: int) -> None:
@@ -94,7 +103,7 @@ def int4_scan_scores(q_i8: torch.Tensor, packed: torch.Tensor,
     if D % 32:
         raise ValueError(f"dim={D}: the kernel reads packed rows in "
                          "16-byte chunks (needs dim % 32 == 0)")
-    smem = 16 * (_ROWS * (D // 32 + 1) + _QUERIES * D // 16)
+    smem = _smem_bytes(D)
     if smem > MAX_SMEM:
         raise ValueError(f"dim={D} needs {smem} bytes of shared memory, "
                          f"more than a block has ({MAX_SMEM})")

@@ -148,3 +148,44 @@ def test_shared_memory_budget(D, dtype, cols, fits):
         want += 2 * 64 * 8 + rows * (cols | 1) * 4
     assert A._smem_bytes(D, dtype, cols) == want
     assert (want <= A.MAX_SMEM) == fits
+
+
+def _grad_case(which, enabled):
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 1, 4, 8, generator=g) for _ in range(3))
+    bh, bw = (torch.randn(1, 1, 4, 2, generator=g) for _ in range(2))
+    tensors = {"q": q, "k": k, "v": v, "bias_h": bh, "bias_w": bw}
+    if which:
+        tensors[which].requires_grad_(True)
+    return list(tensors.values()), enabled
+
+
+@pytest.mark.parametrize("which", [None, "q", "k", "v", "bias_h", "bias_w"])
+@pytest.mark.parametrize("enabled", [True, False])
+def test_gradient_guard_predicate(which, enabled):
+    """The predicate behind the CUDA branch's refusal: gradient mode on and
+    any of q, k, v or the bias tables requiring a gradient. The kernels
+    write through a raw pointer, so their output would carry no grad_fn."""
+    tensors, enabled = _grad_case(which, enabled)
+    with torch.set_grad_enabled(enabled):
+        want = enabled and which is not None
+        assert A.needs_grad(*tensors) is want
+        if want:
+            with pytest.raises(RuntimeError, match="use_flash=False"):
+                A._refuse_grad("flash_attention_2d_bias", *tensors)
+        else:
+            A._refuse_grad("flash_attention_2d_bias", *tensors)
+
+
+def test_cpu_branch_keeps_the_gradient_flowing():
+    """CPU tensors take the plain versions, which autograd differentiates:
+    the output has a grad_fn and every input gets a finite gradient."""
+    tensors, _ = _grad_case(None, True)
+    for t in tensors:
+        t.requires_grad_(True)
+    q, k, v, bh, bw = tensors
+    out = A.flash_attention_2d_bias(q, k, v, bh, bw, 2, 2)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out.sum() + A.flash_attention(q, k, v).sum(),
+                                tensors)
+    assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)

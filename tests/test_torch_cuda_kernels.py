@@ -130,7 +130,16 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-4, 1e-4),
                                              (torch.bfloat16, 1e-3, 2 ** -7)])
 @pytest.mark.parametrize("B,T,heads,D", [(8, 50, 12, 64), (3, 17, 4, 32),
-                                         (2, 77, 8, 64)])
+                                         (2, 77, 8, 64),
+                                         # the training shape
+                                         (64, 50, 12, 64),
+                                         # the 16-row and 64-row tiles' edges
+                                         (2, 16, 3, 64), (2, 49, 3, 64),
+                                         (2, 64, 3, 64), (2, 65, 3, 64),
+                                         (1, 1, 1, 64), (1, 130, 2, 32),
+                                         # the narrowest and widest heads
+                                         (3, 50, 5, 8), (2, 50, 2, 128),
+                                         (2, 77, 3, 24), (1, 128, 2, 32)])
 def test_attention_backward_kernel_matches_plain(cuda_device, dtype, atol,
                                                  rtol, B, T, heads, D):
     g = torch.Generator(device="cpu").manual_seed(B * T + 1)
@@ -144,6 +153,54 @@ def test_attention_backward_kernel_matches_plain(cuda_device, dtype, atol,
     assert got.dtype == dtype and got.shape == qkv.shape
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+    # Every (image, head) owns its slices and nothing is added atomically:
+    # a second run gives the same bits.
+    assert torch.equal(CA.clip_attention_core_bwd(qkv, dout, heads), got)
+
+
+def _attention_bwd_float64(qkv, dout, heads):
+    """The backward's formulas in float64 on the inputs' values."""
+    B, T, W3 = qkv.shape
+    W = W3 // 3
+    D = W // heads
+    q, k, v = (t.double().view(B, T, heads, D).transpose(1, 2)
+               for t in qkv.split(W, dim=-1))
+    g = dout.double().view(B, T, heads, D).transpose(1, 2)
+    p = torch.softmax(q @ k.transpose(-1, -2) * D ** -0.5, dim=-1)
+    dp = g @ v.transpose(-1, -2)
+    dl = p * (dp - (dp * p).sum(-1, keepdim=True))
+    parts = (dl @ k * D ** -0.5, dl.transpose(-1, -2) @ q * D ** -0.5,
+             p.transpose(-1, -2) @ g)
+    return torch.cat([t.transpose(1, 2).reshape(B, T, W) for t in parts],
+                     dim=-1)
+
+
+# Against float64, at unit logits and at logits x30 (q * 30: rows close to
+# one-hot, most p underflow to 0, and at T = 77 the row maximum may lie in
+# either key tile). The kernel may be no farther from float64 than twice the
+# plain version plus the tolerance's absolute part (times 3 at logits x30,
+# where dk grows with q); in bf16 both are dominated by the one rounding at
+# the store.
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-4),
+                                        (torch.bfloat16, 1e-3)])
+@pytest.mark.parametrize("gain", [1.0, 30.0])
+@pytest.mark.parametrize("B,T,heads,D", [(4, 50, 12, 64), (2, 77, 4, 64),
+                                         (1, 130, 2, 32), (2, 50, 2, 128)])
+def test_attention_backward_kernel_vs_float64(cuda_device, dtype, atol, gain,
+                                              B, T, heads, D):
+    g = torch.Generator(device="cpu").manual_seed(T + D + 5)
+    qkv = torch.randn(B, T, 3 * heads * D, generator=g)
+    qkv[..., :heads * D] *= gain
+    qkv = qkv.to(cuda_device, dtype)
+    dout = torch.randn(B, T, heads * D, generator=g).to(cuda_device, dtype)
+    got = CA.clip_attention_core_bwd(qkv, dout, heads)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    ref = _attention_bwd_float64(qkv, dout, heads)
+    plain = CA.clip_attention_core_bwd_plain(qkv, dout, heads)
+    err = float((got.double() - ref).abs().max())
+    err_plain = float((plain.double() - ref).abs().max())
+    assert err <= 2 * err_plain + atol * max(1.0, gain / 10)
 
 
 def test_attention_autograd_runs_b1_then_b5(cuda_device):
@@ -171,10 +228,34 @@ def test_attention_backward_rejects_what_it_does_not_take(cuda_device):
         CA.clip_attention_core_bwd(qkv.half(), dout.half(), heads=1)
     with pytest.raises(ValueError, match="dout"):
         CA.clip_attention_core_bwd(qkv, dout.bfloat16(), heads=1)
+    # q, k, v and dO of one head stay in shared memory in the input type:
+    # T = 384 at D = 64 fits a block in bf16 (6 tiles of 64) and not in f32.
+    long = torch.randn(1, 384, 3 * 64, device=cuda_device)
+    dlong = torch.randn(1, 384, 64, device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
+        CA.clip_attention_core_bwd(long, dlong, heads=1)
+    torch.testing.assert_close(
+        CA.clip_attention_core_bwd(long.bfloat16(), dlong.bfloat16(),
+                                   heads=1).float(),
+        CA.clip_attention_core_bwd_plain(long.bfloat16(), dlong.bfloat16(),
+                                         heads=1).float(),
+        atol=1e-3, rtol=2 ** -7)
+    with pytest.raises(ValueError, match="D=12"):
         CA.clip_attention_core_bwd(
-            torch.zeros(1, 120, 3 * 64, device=cuda_device),
-            torch.zeros(1, 120, 64, device=cuda_device), heads=1)
+            torch.zeros(1, 50, 3 * 12, device=cuda_device),
+            torch.zeros(1, 50, 12, device=cuda_device), heads=1)
+    with pytest.raises(ValueError, match="D=136"):
+        CA.clip_attention_core_bwd(
+            torch.zeros(1, 50, 3 * 136, device=cuda_device),
+            torch.zeros(1, 50, 136, device=cuda_device), heads=1)
+    # A view that starts 4 bytes into an allocation: the 16-byte copies
+    # need aligned rows.
+    flat = torch.zeros(2 * 50 * 64 + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        CA.clip_attention_core_bwd(qkv, flat[1:].view(2, 50, 64), heads=1)
+    flat3 = torch.zeros(2 * 50 * 192 + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        CA.clip_attention_core_bwd(flat3[1:].view(2, 50, 192), dout, heads=1)
 
 
 def _qkv_bias(device, dtype, B, H, gh, gw, D, seed):
@@ -261,6 +342,26 @@ def test_flash_kernels_large_logits_match_plain(cuda_device, dtype, atol,
         rtol=rtol)
 
 
+@pytest.mark.parametrize("which", ["q", "k", "v", "bias_h", "bias_w"])
+def test_flash_kernels_refuse_to_cut_the_autograd_graph(cuda_device, which):
+    """B6/B7 have no backward and write through a raw pointer: with a
+    gradient being recorded they raise, naming the einsum path, rather than
+    return an output without a grad_fn. Under no_grad they run."""
+    names = ("q", "k", "v", "bias_h", "bias_w")
+    tensors = dict(zip(names, _qkv_bias(cuda_device, torch.float32, 1, 2, 4,
+                                        4, 64, 1)))
+    tensors[which].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="use_flash=False"):
+        A.flash_attention_2d_bias(*tensors.values(), 4, 4)
+    if which in ("q", "k", "v"):
+        with pytest.raises(RuntimeError, match="use_flash=False"):
+            A.flash_attention(tensors["q"], tensors["k"], tensors["v"])
+    with torch.no_grad():
+        out = A.flash_attention_2d_bias(*tensors.values(), 4, 4)
+        out7 = A.flash_attention(tensors["q"], tensors["k"], tensors["v"])
+    assert not out.requires_grad and not out7.requires_grad
+
+
 def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
     q, k, v, bh, bw = _qkv_bias(cuda_device, torch.float32, 1, 1, 4, 4, 64, 0)
     with pytest.raises(TypeError):
@@ -311,7 +412,14 @@ def test_scan_kernel_rejects_what_it_does_not_take(cuda_device):
 
 @pytest.mark.parametrize("Q,N,D", [(16, 100_003, 512), (1, 129, 512),
                                    (40, 4096, 512), (3, 1000, 1024),
-                                   (5, 77, 32)])
+                                   (5, 77, 32),
+                                   # the 32-row group's edges, one row
+                                   (17, 31, 64), (16, 32, 64), (16, 33, 64),
+                                   (1, 1, 512),
+                                   # dims that end inside a 64-byte chunk
+                                   (16, 5000, 160), (7, 999, 96),
+                                   # more groups than resident warps
+                                   (16, 300_001, 64), (40, 70_001, 1024)])
 def test_int4_scan_kernel_bit_exact_vs_plain(cuda_device, Q, N, D):
     """Every byte value, positive scales, 10% of rows masked, and query
     halves drawn apart so a lo/hi swap would show."""

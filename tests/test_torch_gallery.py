@@ -153,12 +153,41 @@ def test_unported_paths_raise_naming_the_roadmap():
         g.search(np.ones(8, np.float32), method="int16")
     with pytest.raises(NotImplementedError, match="A.4"):
         g.search(np.ones(8, np.float32), method="capacity")
+    # Asked for by name it raises at any size, also past the auto budget.
+    old = TGallery.CAPACITY_AUTO_BYTES
+    TGallery.CAPACITY_AUTO_BYTES = 1
+    try:
+        with pytest.raises(NotImplementedError, match="A.4"):
+            g.search(np.ones(8, np.float32), method="capacity")
+    finally:
+        TGallery.CAPACITY_AUTO_BYTES = old
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         g.delete(["a"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TGallery("e", dim=8, distance="euclid", device="cpu")
     with pytest.raises(ValueError, match="limit"):
         g.scroll(limit=0)
+
+
+@pytest.mark.parametrize("min_rows", [10 ** 9, 1])
+def test_auto_search_never_picks_the_unported_capacity_tier(monkeypatch,
+                                                            min_rows):
+    """Past CAPACITY_AUTO_BYTES of standard mirrors the JAX store routes an
+    inexact search to its capacity tier. The port has no such tier yet, so
+    its auto route must stay on a tier it has (bf16 here: int8 is the CUDA
+    route) and answer, not raise; the constant is sized for an 80 GB card."""
+    assert TGallery.CAPACITY_AUTO_BYTES >= 32 << 30
+    monkeypatch.setattr(TGallery, "CAPACITY_AUTO_BYTES", 64)
+    monkeypatch.setattr(TGallery, "INT8_SCAN_MIN_ROWS", min_rows)
+    rng = np.random.default_rng(4)
+    g = TGallery("big", dim=8, device="cpu")
+    vecs = rng.normal(size=(40, 8)).astype(np.float32)
+    pl = tschema.Payload(data_type="original_images", class_name="x")
+    g.upsert([f"p{i}" for i in range(40)], vecs, [pl] * 40)
+    assert 40 * 8 * 5 > TGallery.CAPACITY_AUTO_BYTES
+    hits = g.search(vecs[:3], k=1, exact=False)
+    assert [h[0].id for h in hits] == ["p0", "p1", "p2"]
+    assert g._dev_bf16 is not None
 
 
 def test_vector_store_crud_and_device():

@@ -15,14 +15,31 @@ numpy/torch, against the port's plain versions:
   very index expressions ``medoid.cu`` and ``clip_attention.cu`` use;
 - the attention core's (B1) order of operations: p normalised, rounded to
   the input type, then multiplied into V, in one key tile and in the
-  two-pass form.
+  two-pass form;
+- the attention core's backward (B5) in both orientations: fragment loads,
+  accumulators reused as A fragments, the stored m, l and delta, the bf16
+  hi/lo split, dq from registers and dk, dv through the warp's own rows,
+  against the plain backward and the JAX package's Pallas kernel in
+  interpret mode;
+- ``mma.sync.m16n8k32.s8`` and the int4 scan's (B3) load, biased unpack,
+  fragment map and bias correction, bit for bit against the plain scan and
+  the JAX twin.
 """
 
+import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
+from retrieval_based_object_detection_tpu.ops.clip_attention import (
+    _pallas_attn_bwd,
+)
+from retrieval_based_object_detection_tpu.ops.int4_scan import (
+    int4_scan_scores as jax_int4_scan,
+)
 from retrieval_based_object_detection_tpu_torch.ops import clip_attention as CA
+from retrieval_based_object_detection_tpu_torch.ops import int4_scan as S4
 from retrieval_based_object_detection_tpu_torch.ops import medoid as M
 
 LANES = np.arange(32)
@@ -611,3 +628,473 @@ def test_forward_shared_memory_budget():
     assert CA._fwd_smem_bytes(77, 32, 2) == 128 * (40 + 40 + 40) * 2
     assert CA._fwd_smem_bytes(400, 64, 2) <= CA.MAX_SMEM
     assert CA._fwd_smem_bytes(400, 64, 4) > CA.MAX_SMEM
+
+
+# ------------------------------------------ B5: the backward, lane by lane --
+
+# chip_smoke.py's BWD_TOLS: (atol, rtol) of B5 against the plain backward.
+BWD_TOLS = {torch.bfloat16: (1e-3, 2 ** -7), torch.float32: (2e-4, 1e-4)}
+
+
+def dots_nt(xs, x0, ys, y0, kN, bf16, nk16, nd8):
+    """``dots_nt`` of clip_attention.cu: the 16 rows of ``xs`` from ``x0``
+    (A fragments) times the 8 kN rows of ``ys`` from ``y0`` (B fragments)
+    → [kN, 32, 4] accumulators."""
+    s = np.zeros((kN, 32, 4), np.float32)
+    mi = LANES >> 3
+    if bf16:
+        arow = x0 + (LANES & 7) + np.where(mi & 1, 8, 0)
+        acol = np.where(mi & 2, 8, 0)
+        krow = y0 + (LANES & 7) + np.where(mi & 2, 8, 0)
+        kcol = np.where(mi & 1, 8, 0)
+        for kc in range(nk16):
+            a = ldmatrix_x4(xs, arow, kc * 16 + acol)
+            for np_ in range(kN // 2):
+                kb = ldmatrix_x4(ys, np_ * 16 + krow, kc * 16 + kcol)
+                s[2 * np_] += mma_m16n8k16(a, kb[:, 0:2])
+                s[2 * np_ + 1] += mma_m16n8k16(a, kb[:, 2:4])
+    else:
+        for kc in range(nd8):
+            c = kc * 8 + 2 * TQ
+            a = np.stack([xs[x0 + GQ, c], xs[x0 + GQ + 8, c],
+                          xs[x0 + GQ, c + 1], xs[x0 + GQ + 8, c + 1]], axis=1)
+            for n in range(kN):
+                r = y0 + n * 8 + GQ
+                s[n] += mma_m16n8k8(a, np.stack([ys[r, c], ys[r, c + 1]],
+                                                axis=1))
+    return s
+
+
+def acc_nn(o, p, ys, y0, bf16, nk16, split=True):
+    """``acc_nn`` of clip_attention.cu: o += P Y with P in the accumulators
+    ``p`` [kN, 32, 4] as the A fragment and Y the 8 kN rows of ``ys`` from
+    ``y0``. bf16 with ``split``: hi = bf16(p), lo = bf16(p - hi), two mma."""
+    kN = p.shape[0]
+    mi = LANES >> 3
+    if bf16:
+        vrow = y0 + (LANES & 7) + np.where(mi & 1, 8, 0)
+        vcol = np.where(mi & 2, 8, 0)
+        hi = _bf16(p)
+        parts = [_bf16(p - hi), hi] if split else [hi]
+        for kc in range(kN // 2):
+            for part in parts:
+                a = np.stack([part[2 * kc][:, 0:2], part[2 * kc][:, 2:4],
+                              part[2 * kc + 1][:, 0:2],
+                              part[2 * kc + 1][:, 2:4]], axis=1)
+                for dp in range(nk16):
+                    vb = ldmatrix_x4(ys, kc * 16 + vrow, dp * 16 + vcol,
+                                     trans=True)
+                    o[2 * dp] += mma_m16n8k16(a, vb[:, 0:2])
+                    o[2 * dp + 1] += mma_m16n8k16(a, vb[:, 2:4])
+    else:
+        for n in range(kN):
+            a = np.stack([p[n][:, 0], p[n][:, 2], p[n][:, 1], p[n][:, 3]],
+                         axis=1)
+            r = y0 + n * 8 + 2 * TQ
+            for dp in range(nk16):
+                c = 2 * GQ + 16 * dp
+                o[2 * dp] += mma_m16n8k8(a, np.stack(
+                    [ys[r, c], ys[r + 1, c]], axis=1))
+                o[2 * dp + 1] += mma_m16n8k8(a, np.stack(
+                    [ys[r, c + 1], ys[r + 1, c + 1]], axis=1))
+
+
+def rows_from_accumulators(o, mul, bf16, nk16, nd8, kD):
+    """The 16 x kD values of the accumulators ``o`` times ``mul`` by the
+    (row, dim) map that ``stage_rows`` and the dq store share; NaN where
+    nothing is written."""
+    out = np.full((16, kD), np.nan, np.float32)
+    val = o * np.float32(mul)
+    if bf16:
+        for dt in range(nd8):
+            c = dt * 8 + 2 * TQ
+            for j in range(2):
+                out[GQ, c + j] = _bf16(val[dt][:, j])
+                out[GQ + 8, c + j] = _bf16(val[dt][:, 2 + j])
+    else:
+        for dp in range(nk16):
+            c = dp * 16 + 4 * TQ
+            for half in range(2):
+                out[GQ + 8 * half, c] = val[2 * dp][:, 2 * half]
+                out[GQ + 8 * half, c + 1] = val[2 * dp + 1][:, 2 * half]
+                out[GQ + 8 * half, c + 2] = val[2 * dp][:, 2 * half + 1]
+                out[GQ + 8 * half, c + 3] = val[2 * dp + 1][:, 2 * half + 1]
+    return out
+
+
+def emulate_attention_bwd_block(q, k, v, g, dtype):
+    """One (image, head) of clip_attention.cu's backward, lane by lane: q,
+    k, v, g [T, D] in the input type's values → dq, dk, dv [T, D] as
+    stored. Shared memory is NaN where the kernel never writes and zero
+    where cp.async zero-fills."""
+    T, D = q.shape
+    bf16 = dtype == torch.bfloat16
+    kD = 32 if D <= 32 else 64 if D <= 64 else 128
+    ld = kD + 8
+    ntiles = -(-T // 64)
+    rows = ntiles * 64
+    bufs = []
+    for src in (q, k, v, g):
+        buf = np.full((rows, ld), np.nan)
+        buf[:, :kD] = 0.0
+        buf[:T, :D] = src
+        bufs.append(buf)
+    qs, ks, vs, gs = bufs
+    st_m, st_l, st_d = (np.full(rows, np.nan, np.float32) for _ in range(3))
+    nk16, nd8 = -(-D // 16), D // 8
+    scale = np.float32(D ** -0.5)
+    c2 = scale * np.float32(1.4426950408889634)
+    mtiles = -(-T // 16)
+    dq, dk, dv = (np.full((T, D), np.nan, np.float32) for _ in range(3))
+
+    def quad(x, op=np.add):
+        x = op(x, x[LANES ^ 1])
+        return op(x, x[LANES ^ 2])
+
+    def row_of(e):  # accumulator element -> index of its row half
+        return e >> 1
+
+    # Orientation A: a warp owns 16 query rows.
+    for mt in range(mtiles):
+        r0 = mt * 16
+
+        def logits(t):
+            s = dots_nt(qs, r0, ks, t * 64, 8, bf16, nk16, nd8)
+            for n in range(8):
+                for j in range(2):
+                    past = t * 64 + n * 8 + 2 * TQ + j >= T
+                    s[n][past, j] = -np.inf
+                    s[n][past, 2 + j] = -np.inf
+            return s
+
+        def probs(s):
+            p = np.zeros_like(s)
+            for e in range(4):
+                p[:, :, e] = np.exp2((s[:, :, e] - m[row_of(e)]) * c2) \
+                    / l[row_of(e)]
+            return p
+
+        m = np.full((2, 32), -1e30, np.float32)
+        l = np.zeros((2, 32), np.float32)
+        with np.errstate(over="ignore"):
+            for t in range(ntiles):
+                s = logits(t)
+                for h in range(2):
+                    mx = quad(s[:, :, 2 * h: 2 * h + 2].max(axis=(0, 2)),
+                              np.maximum)
+                    m_new = np.maximum(m[h], mx)
+                    l[h] *= np.exp2((m[h] - m_new) * c2)
+                    m[h] = m_new
+                for n in range(8):
+                    for e in range(4):
+                        l[row_of(e)] += np.exp2((s[n][:, e] - m[row_of(e)])
+                                                * c2)
+        l = np.stack([quad(l[0]), quad(l[1])])
+        delta = np.zeros((2, 32), np.float32)
+        for t in range(ntiles):
+            if ntiles > 1:
+                s = logits(t)
+            s = probs(s)
+            dp = dots_nt(gs, r0, vs, t * 64, 8, bf16, nk16, nd8)
+            for n in range(8):
+                for e in range(4):
+                    delta[row_of(e)] += dp[n][:, e] * s[n][:, e]
+        delta = np.stack([quad(delta[0]), quad(delta[1])])
+        for h in range(2):
+            lanes = TQ == 0
+            st_m[r0 + GQ[lanes] + 8 * h] = m[h][lanes]
+            st_l[r0 + GQ[lanes] + 8 * h] = l[h][lanes]
+            st_d[r0 + GQ[lanes] + 8 * h] = delta[h][lanes]
+        o = np.zeros((kD // 8, 32, 4), np.float32)
+        for t in range(ntiles):
+            if ntiles > 1:
+                s = probs(logits(t))
+                dp = dots_nt(gs, r0, vs, t * 64, 8, bf16, nk16, nd8)
+            dl = np.zeros_like(s)
+            for e in range(4):
+                dl[:, :, e] = s[:, :, e] * (dp[:, :, e] - delta[row_of(e)])
+            acc_nn(o, dl, ks, t * 64, bf16, nk16)
+        staged = rows_from_accumulators(o, scale, bf16, nk16, nd8, kD)
+        for r in range(16):
+            if r0 + r < T:
+                dq[r0 + r] = staged[r, :D]
+
+    # Orientation B: a warp owns 16 keys, 16 queries at a time.
+    for kt in range(mtiles):
+        r0 = kt * 16
+        acc_k = np.zeros((kD // 8, 32, 4), np.float32)
+        acc_v = np.zeros((kD // 8, 32, 4), np.float32)
+        for qc in range(mtiles):
+            st = dots_nt(ks, r0, qs, qc * 16, 2, bf16, nk16, nd8)
+            dpt = dots_nt(vs, r0, gs, qc * 16, 2, bf16, nk16, nd8)
+            with np.errstate(invalid="ignore", over="ignore"):
+                for n in range(2):
+                    for e in range(4):
+                        j = qc * 16 + n * 8 + 2 * TQ + (e & 1)
+                        ok = (j < T) & (r0 + GQ + 8 * (e >> 1) < T)
+                        p = np.exp2((st[n][:, e] - st_m[j]) * c2) / st_l[j]
+                        st[n][:, e] = np.where(ok, p, 0.0)
+                        dpt[n][:, e] = np.where(
+                            ok, p * (dpt[n][:, e] - st_d[j]), 0.0)
+            acc_nn(acc_v, st, gs, qc * 16, bf16, nk16)
+            acc_nn(acc_k, dpt, qs, qc * 16, bf16, nk16)
+        # Staged in the warp's own k and v rows, then the row copies.
+        ks[r0:r0 + 16, :kD] = rows_from_accumulators(acc_k, scale, bf16,
+                                                     nk16, nd8, kD)
+        vs[r0:r0 + 16, :kD] = rows_from_accumulators(acc_v, 1.0, bf16, nk16,
+                                                     nd8, kD)
+        for r in range(16):
+            if r0 + r < T:
+                dk[r0 + r] = ks[r0 + r, :D]
+                dv[r0 + r] = vs[r0 + r, :D]
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,D", [(17, 32), (50, 32), (77, 32), (17, 64),
+                                 (50, 64), (77, 64)])
+def test_attention_bwd_fragments_match_plain_and_pallas(dtype, T, D):
+    """The backward's index maps through the PTX layouts, one key tile
+    (T <= 64) and two (T = 77): every stored element written, no NaN from
+    unwritten or padded shared memory, and the values of the plain backward
+    and of the JAX package's Pallas kernel in interpret mode, both at the
+    card's tolerance for B5 against its plain version."""
+    rng = np.random.default_rng(T * D + 1)
+    qkv = torch.from_numpy(rng.normal(size=(1, T, 3 * D)).astype(np.float32)
+                           ).to(dtype)
+    dout = torch.from_numpy(rng.normal(size=(1, T, D)).astype(np.float32)
+                            ).to(dtype)
+    q, k, v = (t[0].float().numpy() for t in qkv.split(D, dim=-1))
+    got = np.concatenate(emulate_attention_bwd_block(
+        q, k, v, dout[0].float().numpy(), dtype), axis=1)
+    assert np.isfinite(got).all()
+    atol, rtol = BWD_TOLS[dtype]
+    want = CA.clip_attention_core_bwd_plain(qkv, dout, heads=1)[0]
+    np.testing.assert_allclose(got, want.float().numpy(), atol=atol,
+                               rtol=rtol)
+    np_dtype = ml_dtypes.bfloat16 if dtype == torch.bfloat16 else np.float32
+    jax_want = np.asarray(_pallas_attn_bwd(
+        jnp.asarray(qkv.float().numpy().astype(np_dtype)),
+        jnp.asarray(dout.float().numpy().astype(np_dtype)), 1,
+        interpret=True)).astype(np.float32)[0]
+    np.testing.assert_allclose(got, jax_want, atol=atol, rtol=rtol)
+
+
+def test_rounding_p_to_bf16_once_would_leave_the_f32_contract():
+    """Why the A fragments of dv, dq and dk are split into bf16 hi + lo:
+    with p and dl rounded to bf16 once, the f32 values before the store are
+    2^-9 of a term off, hundreds of times what the split leaves, and the
+    backward would no longer be the plain version's function (which, as the
+    Pallas kernel, keeps p in f32 and rounds once, at the store)."""
+    rng = np.random.default_rng(21)
+    T, D = 50, 64
+    q, k, v, g = (_bf16(rng.normal(size=(T, D))) for _ in range(4))
+    s = (q @ k.T).astype(np.float32) * np.float32(D ** -0.5)
+    e = np.exp(s - s.max(1, keepdims=True))
+    p = (e / e.sum(1, keepdims=True)).astype(np.float32)
+    exact = p.astype(np.float64).T @ g.astype(np.float64)
+    hi = _bf16(p)
+    lo = _bf16(p - hi)
+    once = hi.astype(np.float64).T @ g
+    split = once + lo.astype(np.float64).T @ g
+    scale = np.abs(exact).max()
+    assert np.abs(split - exact).max() / scale < 2 ** -17
+    assert np.abs(once - exact).max() / scale > 2e-4
+    assert np.abs(once - exact).max() > 100 * np.abs(split - exact).max()
+
+
+def test_backward_shared_memory_budget():
+    """The wrapper's budget is the kernel's layout: four slices at the
+    forward's Q/K stride plus three f32 statistics per row. ViT-B/32 in
+    bf16 is 37,632 bytes a block; T = 384 at D = 64 fits in bf16 and not in
+    f32."""
+    assert CA._bwd_smem_bytes(50, 64, 2) == 64 * 4 * 72 * 2 + 3 * 64 * 4 \
+        == 37_632
+    assert CA._bwd_smem_bytes(50, 64, 4) == 64 * 4 * 72 * 4 + 768 == 74_496
+    assert CA._bwd_smem_bytes(77, 32, 2) == 128 * 4 * 40 * 2 + 3 * 128 * 4
+    assert CA._bwd_smem_bytes(50, 128, 4) == 64 * 4 * 136 * 4 + 768
+    assert CA._bwd_smem_bytes(384, 64, 2) <= CA.MAX_SMEM
+    assert CA._bwd_smem_bytes(384, 64, 4) > CA.MAX_SMEM
+    assert CA._bwd_smem_bytes(385, 64, 2) > CA.MAX_SMEM
+
+
+# --------------------------------------- B3: m16n8k32.s8 and the int4 scan --
+
+def mma_m16n8k32(a, b):
+    """PTX mma.m16n8k32 (s8): a [32, 4, 4], b [32, 2, 4] per-lane registers
+    of four signed bytes (lowest byte first) → c [32, 4] int32. A(16x32):
+    a0 (gq, 4tq..+3), a1 (gq+8, 4tq..), a2 (gq, 16+4tq..), a3 (gq+8,
+    16+4tq..). B(32x8): b0 (k 4tq..+3, n gq), b1 (k 16+4tq.., n gq).
+    C(16x8) as the other shapes."""
+    A = np.zeros((16, 32), np.int64)
+    B = np.zeros((32, 8), np.int64)
+    for i in range(4):
+        A[GQ, 4 * TQ + i], A[GQ + 8, 4 * TQ + i] = a[:, 0, i], a[:, 1, i]
+        A[GQ, 16 + 4 * TQ + i] = a[:, 2, i]
+        A[GQ + 8, 16 + 4 * TQ + i] = a[:, 3, i]
+        B[4 * TQ + i, GQ], B[16 + 4 * TQ + i, GQ] = b[:, 0, i], b[:, 1, i]
+    C = A @ B
+    return np.stack([C[GQ, 2 * TQ], C[GQ, 2 * TQ + 1],
+                     C[GQ + 8, 2 * TQ], C[GQ + 8, 2 * TQ + 1]], axis=1)
+
+
+def _low_biased(w):
+    """int4_scan.cu's ``low_biased`` on uint32 words: lo + 8 per byte."""
+    return w.astype(np.uint32) & np.uint32(0x0F0F0F0F)
+
+
+def _high_biased(w):
+    """``high_biased``: hi + 8 per byte, from the top nibble."""
+    return ((w.astype(np.uint32) >> np.uint32(4)) & np.uint32(0x0F0F0F0F)) \
+        ^ np.uint32(0x08080808)
+
+
+def _bytes_of(words):
+    """uint32 [...] → the four signed bytes of each word, lowest first."""
+    return np.ascontiguousarray(words.astype("<u4")).view(np.int8).reshape(
+        words.shape + (4,)).astype(np.int64)
+
+
+def test_biased_nibble_words_match_unpack_int4():
+    """Every byte value through ``low_biased`` / ``high_biased``: the
+    values ``unpack_int4`` gives plus 8, all in 0..15, so they are valid
+    signed bytes and no byte touches its neighbour."""
+    b = np.arange(-128, 128, dtype=np.int8)
+    rows = np.stack([b, b[::-1], np.roll(b, 7), np.roll(b, 101)], axis=1)
+    words = rows.copy().view("<u4")[:, 0]
+    want = S4.unpack_int4(torch.from_numpy(rows)).numpy().astype(np.int64) + 8
+    assert want.min() == 0 and want.max() == 15
+    np.testing.assert_array_equal(_bytes_of(_low_biased(words)), want[:, :4])
+    np.testing.assert_array_equal(_bytes_of(_high_biased(words)),
+                                  want[:, 4:])
+
+
+def emulate_int4_scan(q, packed, scales, pen, blocks):
+    """``scan`` of int4_scan.cu lane by lane, with ``blocks`` blocks of 4
+    warps in x and one pass of 16 queries per block in y."""
+    nq, dim = q.shape
+    n = packed.shape[0]
+    half = dim // 2
+    nchunks = -(-half // 64)
+    half_pad = nchunks * 64
+    ldq = 2 * half_pad + 64
+    out = np.full((nq, n), np.nan, np.float32)
+    ngroups = -(-n // 32)
+    nwarps = blocks * 4
+    flat = packed.reshape(-1).view(np.uint8)
+    for q0 in range(0, nq, 16):
+        nqb = min(16, nq - q0)
+        qs = np.full((16, ldq), 0x5A, np.uint8)  # garbage where unwritten
+        for i in range(16 * (2 * half_pad // 16)):
+            j, c = divmod(i, 2 * half_pad // 16)
+            c *= 16
+            d = c if c < half_pad else c - half_pad
+            piece = np.zeros(16, np.uint8)
+            if j < nqb and d < half:
+                lo = (0 if c < half_pad else half) + d
+                piece = q[q0 + j, lo:lo + 16].view(np.uint8)
+            qs[j, c:c + 16] = piece
+        # 8 * sum_d q[j][d] over the padded row (the padding is 0).
+        bias = 8 * qs[:, :2 * half_pad].view(np.int8).astype(np.int64).sum(1)
+        nquads = -(-nchunks // 4)
+        for first in range(min(nwarps, ngroups)):
+            mine = -(-(ngroups - first) // nwarps)
+            stage = np.full((16, 40), -7, np.int64)
+            for s in range(mine * 4 * nquads):
+                quad, tile = s % nquads, s // nquads
+                grp, i = first + (tile // 4) * nwarps, tile % 4
+                r = grp * 32 + i * 8 + GQ
+                if quad == 0:
+                    acc = np.zeros((32, 4), np.int64)
+                for j in range(4):
+                    c = quad * 4 + j
+                    byte = c * 64 + TQ * 16
+                    w = np.zeros((32, 4), np.uint32)  # the load: lane, word
+                    for lane in range(32):
+                        if r[lane] < n and byte[lane] < half:
+                            o = r[lane] * half + byte[lane]
+                            w[lane] = flat[o:o + 16].view("<u4")
+                    if c >= nchunks:
+                        assert not w.any()
+                        continue
+                    # A: 16 bytes of queries gq and gq + 8 in each half.
+                    la, lb, ha, hb = (np.stack(
+                        [qs[row[lane], off[lane]:off[lane] + 16].view("<u4")
+                         for lane in range(32)])
+                        for row, off in ((GQ, byte), (GQ + 8, byte),
+                                         (GQ, byte + half_pad),
+                                         (GQ + 8, byte + half_pad)))
+                    frags = [np.stack([x[:, k], y[:, k], x[:, k + 1],
+                                       y[:, k + 1]], axis=1)
+                             for x, y in ((la, lb), (ha, hb)) for k in (0, 2)]
+                    al0, al1, ah0, ah1 = (_bytes_of(f) for f in frags)
+                    for a, unpack, k in ((al0, _low_biased, 0),
+                                         (al1, _low_biased, 2),
+                                         (ah0, _high_biased, 0),
+                                         (ah1, _high_biased, 2)):
+                        b = np.stack([unpack(w[:, k]), unpack(w[:, k + 1])],
+                                     axis=1)
+                        acc += mma_m16n8k32(a, _bytes_of(b))
+                if quad != nquads - 1:
+                    continue
+                for j in range(2):
+                    stage[GQ, i * 8 + 2 * TQ + j] = acc[:, j]
+                    stage[GQ + 8, i * 8 + 2 * TQ + j] = acc[:, 2 + j]
+                if i != 3:
+                    continue
+                r = grp * 32 + LANES
+                live = r < n
+                for j in range(nqb):
+                    val = (stage[j, LANES] - bias[j]).astype(np.float32)
+                    res = (val * scales[np.minimum(r, n - 1)]).astype(
+                        np.float32) + pen[np.minimum(r, n - 1)]
+                    assert np.isnan(out[q0 + j, r[live]]).all()
+                    out[q0 + j, r[live]] = res[live]
+                stage[:] = -7
+    return out
+
+
+def _int4_case(nq, n, dim, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-127, 128, (nq, dim), dtype=np.int8)
+    q[:, dim // 2:] = rng.integers(-127, 128, (nq, dim // 2),
+                                   dtype=np.int8) // 3
+    packed = rng.integers(-128, 128, (n, dim // 2), dtype=np.int8)
+    scales = (rng.random(n) * 0.2 + 1e-3).astype(np.float32)
+    pen = np.where(rng.random(n) < 0.1, -1e30, 0.0).astype(np.float32)
+    return q, packed, scales, pen
+
+
+@pytest.mark.parametrize("nq,n,dim,blocks", [
+    (16, 70, 512, 1), (1, 33, 32, 2), (17, 64, 64, 1), (40, 100, 160, 2),
+    (3, 300, 1024, 1), (16, 1, 96, 3)])
+def test_int4_scan_fragments_bit_exact_vs_plain(nq, n, dim, blocks):
+    """The scan's loads, unpack, A/B fragments, staging and masks through
+    the PTX layout of m16n8k32: every score written exactly once and equal
+    bit for bit to the plain scan; ragged N, ``nq`` other than 16, dims
+    that are no multiple of 128 (a last chunk partly past the row) or take
+    two steps a tile (1024), and warps that walk several groups."""
+    q, packed, scales, pen = _int4_case(nq, n, dim, nq * n + dim)
+    got = emulate_int4_scan(q, packed, scales, pen, blocks)
+    want = S4.int4_scan_scores_plain(*(torch.from_numpy(a) for a in (
+        q, packed, scales, pen))).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("nq,n,dim", [(16, 256, 64), (5, 512, 32)])
+def test_int4_scan_fragments_bit_exact_vs_pallas_interpret(nq, n, dim):
+    q, packed, scales, pen = _int4_case(nq, n, dim, n + dim)
+    got = emulate_int4_scan(q, packed, scales, pen, blocks=2)
+    want = np.asarray(jax_int4_scan(*(jnp.asarray(a) for a in (
+        q, packed, scales, pen)), interpret=True))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_int4_scan_shared_memory_budget():
+    """The wrapper's budget is the kernel's layout: 16 query rows of two
+    64-dim-padded halves plus 64 bytes, 16 int32 biases, and four 16 x 40
+    int32 stages."""
+    assert S4._smem_bytes(512) == 16 * (512 + 64) + 64 + 10_240 == 19_520
+    assert S4._smem_bytes(32) == 16 * (128 + 64) + 64 + 10_240
+    assert S4._smem_bytes(160) == 16 * (256 + 64) + 64 + 10_240
+    assert S4._smem_bytes(8192) <= S4.MAX_SMEM < S4._smem_bytes(16384)

@@ -252,6 +252,37 @@ def test_fit_loss_tracks_jax_fit(crop_tree):
     assert got["accuracy"] == want["accuracy"]
 
 
+def test_jax_fit_records_are_a_subset_of_the_ports(crop_tree, tmp_path,
+                                                   monkeypatch):
+    """The port's ``FitConfig`` and epoch record may add fields of their
+    own (``log_file``; ``steps`` and ``mean_loss``, listed in the README's
+    port section), but every field and key of the JAX package's is there,
+    so code written against the reference reads the port's records."""
+    import dataclasses
+
+    jax_fields = {f.name for f in dataclasses.fields(JL.FitConfig)}
+    port_fields = {f.name for f in dataclasses.fields(TL.FitConfig)}
+    assert jax_fields <= port_fields
+    assert port_fields - jax_fields == {"log_file"}
+
+    kw = dict(root_dir=str(crop_tree), epochs=1, batch_size=8,
+              compute_dtype="float32")
+    seen = []
+    monkeypatch.setattr(
+        JL.StageLogger, "event",
+        lambda self, name, **fields: seen.append((name, set(fields))))
+    JL.fit(jm.CLIPVisionConfig(**TINY), JL.FitConfig(**kw),
+           make_mesh({"dp": 8}))
+    jax_epoch, = (keys for name, keys in seen if name == "epoch")
+    log = tmp_path / "log.jsonl"
+    TL.fit(tm.CLIPVisionConfig(**TINY),
+           TL.FitConfig(log_file=str(log), **kw), device="cpu")
+    port_epoch, = _events(log, "epoch")
+    assert jax_epoch <= set(port_epoch)
+    assert set(port_epoch) - jax_epoch - {"stage", "event", "t"} == \
+        {"steps", "mean_loss"}
+
+
 def test_fit_refills_decode_failures(crop_tree, tmp_path):
     """A file that does not decode shrinks its batch; fit refills it by
     cycling the good samples and logs how many it repeated."""
