@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch port: its serving, offline, training and
-segment paths on one NVIDIA GPU.
+"""Chip smoke test of the PyTorch port: its serving, offline, gallery,
+training and segment paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -8,7 +8,7 @@ Builds the port's CUDA kernels from ``csrc/`` (one nvcc per source, all
 started together), counts the tensor-core instructions of each
 tensor-core kernel (B1, B3, B4, B5, B6, B7), and holds each kernel against its
 plain PyTorch version at the shapes its path gives it. Then it drives
-four paths through the calls a user makes, at full width from seeded
+five paths through the calls a user makes, at full width from seeded
 weights:
 
 - serving: a few hundred synthetic crops are embedded into a Gallery,
@@ -18,8 +18,16 @@ weights:
 - offline: ``embed_tree`` over a synthetic dataset tree, 12,000 crops of
   one class through ``embed_arrays`` (a group past the blocked-medoid
   threshold), ``build_delegates``, ``run_experiments`` in both match
-  modes writing CSV/npy, and ``search(method="int4")`` on the 1M-row
-  gallery;
+  modes writing CSV/npy, ``analyze`` of both result CSVs, and
+  ``search(method="int4")`` on the 1M-row gallery;
+- gallery: the 1M-row gallery as a database — 1% of its rows deleted by
+  filter and 1,000 by id, searched through exact, int8 and int4 against
+  an exact search over the live rows, compacted; saved as a ``.rbod``
+  snapshot with a delta and reloaded (identical hits); searched through
+  the capacity tier; then the capacity view at 10,485,760 x 512 from
+  planes made on the card (the int4 scan past 2^31 bytes of packed rows),
+  with a filter and 1% of rows deleted, against an exact cosine over the
+  same bf16 rows;
 - training: ``fit`` fine-tunes ViT-B/32 (bf16 compute, f32 weights) for 12
   steps of 64 on a colour-class tree with checkpoints, then resumes for 6
   more under the cosine schedule; one f32 step's gradients are held
@@ -799,13 +807,17 @@ def gallery_phase(torch, np, port, seed: int) -> dict:
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed + 2)
     gallery = store.Gallery("scale", dim=D, capacity=N, device="cuda")
-    pls = [Payload(data_type="original_images", class_name=f"c{i}",
-                   img_path="") for i in range(8)]
+    # Every 100th row is a natural image: 1% of the gallery, the rows the
+    # tombstone phase deletes by filter.
+    pls = [Payload(data_type=kind, class_name=f"c{i}", img_path="")
+           for kind in ("original_images", "natural_images")
+           for i in range(8)]
     chunk = 131_072
     for lo in range(0, N, chunk):
         vecs = rng.standard_normal((chunk, D), dtype=np.float32)
         gallery.upsert([f"row-{i}" for i in range(lo, lo + chunk)], vecs,
-                       [pls[i % 8] for i in range(lo, lo + chunk)])
+                       [pls[i % 8 + 8 * (i % 100 == 0)]
+                        for i in range(lo, lo + chunk)])
     fill_s = time.perf_counter() - t0
     picks = rng.choice(N, Q, replace=False)
     queries = gallery._vectors[picks] + 0.5 * rng.standard_normal(
@@ -1045,6 +1057,8 @@ def experiment_phase(torch, np, port, params, seed: int) -> dict:
         out["nearest_top1"] = (sum(r.predicted_class == r.true_class
                                    for r in nearest) / len(nearest))
         out["result_rows"] = len(runs["same_class"].rows)
+        analysis_phase(port, {mode: res.csv_path
+                              for mode, res in runs.items()})
     out.update(points=len(gallery), encode_batches=batches,
                timing_encodes=timing_encodes,
                delegates=built.n_delegates_written, groups_over_threshold=
@@ -1098,6 +1112,325 @@ def gallery_int4_phase(torch, np, port, gallery, queries, picks) -> dict:
            "ids_equal_plain_int4": True,
            "self_hit_top1": f"{self_hits}/{len(picks)}"}
     log("gallery_int4_search", **out)
+    return out
+
+
+def host_ms(fn, reps: int = 5) -> list[float]:
+    """Sorted host-clock milliseconds of ``reps`` calls."""
+    out = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t) * 1e3)
+    return sorted(out)
+
+
+def ids_of(res) -> list[set]:
+    return [{h.id for h in r} for r in res]
+
+
+def live_exact_topk(torch, np, gallery, queries, k: int) -> list[set]:
+    """Top-k ids by exact cosine over the gallery's live rows alone, taken
+    from its host rows, apart from its mirrors and masks."""
+    rows = np.nonzero(gallery._mask_live(None))[0]
+    live = torch.from_numpy(gallery._vectors[rows]).cuda()
+    live = live / live.norm(dim=1, keepdim=True)
+    q = torch.from_numpy(queries).cuda()
+    q = q / q.norm(dim=1, keepdim=True)
+    idx = torch.topk(q @ live.T, k, dim=1).indices.cpu().numpy()
+    return [{gallery._ids[rows[i]] for i in r} for r in idx]
+
+
+TIERS = ("exact", "int8", "int4")
+
+
+def tombstones_phase(torch, np, port, gallery, queries, picks,
+                     seed: int) -> dict:
+    """Deletes on the 1M-row gallery: 1% of its rows by filter (every
+    natural image) and 1,000 by id (the first 8 queries' own rows among
+    them). The mirrors stay as they are; no deleted id comes back from any
+    tier; exact and int8 return the top-10 of an exact search over the
+    live rows alone and int4 overlaps it. Then compact and search again."""
+    Filter = port["schema"].Filter
+    k = 10
+    out = {"rows": gallery._nrows, "queries": len(queries), "k": k}
+    out["search_ms_host_clock_before"] = {
+        t: host_ms(lambda t=t: gallery.search(queries, k=k, method=t), 3)
+        for t in TIERS}
+    mirrors = (gallery._dev_f32, gallery._dev_int8, gallery._dev_int4[0])
+    rng = np.random.default_rng(seed + 30)
+    t = time.perf_counter()
+    by_filter = gallery.delete(flt=Filter(must={"data_type":
+                                                "natural_images"}))
+    out["delete_by_filter_ms"] = (time.perf_counter() - t) * 1e3
+    gone = {f"row-{i}" for i in range(0, gallery._nrows, 100)}
+    own = [int(p) for p in picks[:8] if p % 100]
+    pool = np.setdiff1d(np.flatnonzero(np.arange(gallery._nrows) % 100), own)
+    others = rng.choice(pool, 1000 - len(own), replace=False)
+    by_id = [f"row-{i}" for i in own + [int(i) for i in others]]
+    t = time.perf_counter()
+    removed = gallery.delete(ids=by_id)
+    out["delete_by_id_ms"] = (time.perf_counter() - t) * 1e3
+    gone |= set(by_id)
+    if by_filter != len(gone) - 1000 or removed != 1000 or \
+            len(gallery) != gallery._nrows - len(gone):
+        raise AssertionError(f"deleted {by_filter} + {removed} rows")
+    after = (gallery._dev_f32, gallery._dev_int8, gallery._dev_int4[0])
+    if not all(a is b for a, b in zip(after, mirrors)):
+        raise AssertionError("a delete rebuilt a device mirror")
+    want = live_exact_topk(torch, np, gallery, queries, k)
+
+    def check(tag):
+        res = {t: ids_of(gallery.search(queries, k=k, method=t))
+               for t in TIERS}
+        if any(gone & ids for r in res.values() for ids in r):
+            raise AssertionError(f"{tag}: a deleted id came back")
+        for t in ("exact", "int8"):
+            if res[t] != want:
+                raise AssertionError(f"{tag}: {t} top-10 differs from the "
+                                     "exact search over the live rows")
+        return float(np.mean([len(a & b) / k
+                              for a, b in zip(res["int4"], want)]))
+
+    out["int4_top10_overlap_with_live_exact"] = check("after delete")
+    out["deleted"] = len(gone)
+    out["search_ms_host_clock_after_delete"] = {
+        t: host_ms(lambda t=t: gallery.search(queries, k=k, method=t), 3)
+        for t in TIERS}
+    t = time.perf_counter()
+    out["compacted_rows"] = gallery.compact()
+    out["compact_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["int4_top10_overlap_after_compact"] = check("after compact")
+    out["first_searches_after_compact_s"] = time.perf_counter() - t
+    out["search_ms_host_clock_after_compact"] = {
+        t: host_ms(lambda t=t: gallery.search(queries, k=k, method=t), 3)
+        for t in TIERS}
+    if out["compacted_rows"] != len(gone) or gallery._nrows != len(gallery):
+        raise AssertionError(f"compaction reclaimed {out['compacted_rows']}")
+    log("tombstones", **out)
+    return out
+
+
+def persist_phase(torch, np, port, gallery, queries) -> dict:
+    """save_gallery of the compacted 1M-row gallery, a delete and a delta
+    save, load_gallery, and the same searches before and after the reload:
+    identical ids and scores. The C++ runtime must have built."""
+    import tempfile
+    from pathlib import Path
+
+    persist, native = port["persist"], port["native"]
+    if not native.available():
+        raise AssertionError("the native runtime did not build")
+    k = 10
+    out = {"rows": len(gallery), "native": str(native.library_path().name)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        persist.save_gallery(gallery, root)
+        out["base_write_s"] = time.perf_counter() - t
+        out["base_bytes"] = (root / f"{gallery.name}.rbod").stat().st_size
+        dead = [gallery._ids[r] for r in range(5, len(gallery), 10_007)]
+        gallery.delete(ids=dead)
+        t = time.perf_counter()
+        persist.save_gallery(gallery, root)
+        out["delta_write_ms"] = (time.perf_counter() - t) * 1e3
+        out["delta_bytes"] = (root / f"{gallery.name}.rbod.d1").stat(
+            ).st_size
+        before = {t: gallery.search(queries, k=k, method=t) for t in TIERS}
+        t = time.perf_counter()
+        loaded = persist.load_gallery(gallery.name, root, device="cuda")
+        out["load_s"] = time.perf_counter() - t
+        if len(loaded) != len(gallery) or loaded.retrieve(dead[:1]):
+            raise AssertionError("the reload lost the delta")
+        for tier in TIERS:
+            a = [[(h.id, h.score) for h in r] for r in before[tier]]
+            b = [[(h.id, h.score) for h in r] for r in loaded.search(
+                queries, k=k, method=tier)]
+            if a != b:
+                raise AssertionError(f"{tier} hits changed across the reload")
+        out["deleted_before_delta"] = len(dead)
+    del loaded
+    torch.cuda.empty_cache()
+    log("persist", **out)
+    return out
+
+
+CAPACITY_ROWS = 10_485_760  # the capacity tier's 10M-row configuration
+
+
+def capacity_phase(torch, np, port, gallery, queries, seed: int):
+    """search(method="capacity") through the 1M-row Gallery, then the
+    capacity view at 10,485,760 x 512 from planes made on the card chunk by
+    chunk (the host holds only the mask): 16 queries, top-10, with a filter
+    mask and after a delete of 1% of rows, held against an exact cosine
+    over the same bf16 rows taken chunk by chunk."""
+    cap, search = port["capacity"], port["search"]
+    S4 = port["int4_scan"]
+    k, D = 10, 512
+    out = {}
+    before = S4.KERNEL.launches
+    t = time.perf_counter()
+    hits = gallery.search(queries, k=k, method="capacity")
+    out["gallery_first_capacity_search_s"] = time.perf_counter() - t
+    exact = gallery.search(queries, k=k, method="exact")
+    out["gallery_capacity_top10_overlap_with_exact"] = float(np.mean(
+        [len(a & b) / k for a, b in zip(ids_of(hits), ids_of(exact))]))
+    out["gallery_search_ms_host_clock"] = host_ms(
+        lambda: gallery.search(queries, k=k, method="capacity"))
+    if S4.KERNEL.launches == before or gallery._cap_view is None:
+        raise AssertionError("method='capacity' did not launch the int4 scan")
+    gallery._cap_view = None  # free its planes before the 10M view
+    torch.cuda.empty_cache()
+
+    N, chunk, Q = CAPACITY_ROWS, 262_144, 16
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(seed + 40)
+    bf16 = torch.empty((N, D), dtype=torch.bfloat16, device="cuda")
+    packed = torch.empty((N, D // 2), dtype=torch.int8, device="cuda")
+    scales = torch.empty(N, dtype=torch.float32, device="cuda")
+    for lo in range(0, N, chunk):
+        x = torch.randn((chunk, D), generator=g, device="cuda")
+        x = x / x.norm(dim=1, keepdim=True)
+        p, s = search.pack_rows_int4(x)
+        bf16[lo: lo + chunk] = x.to(torch.bfloat16)
+        packed[lo: lo + chunk], scales[lo: lo + chunk] = p, s
+        del x, p, s
+    torch.cuda.synchronize()
+    out["planes_on_card_s"] = time.perf_counter() - t
+    rng = np.random.default_rng(seed + 41)
+    view = cap.CapacitySearcher.from_device_planes(
+        bf16, packed, scales, np.ones(N, bool), N)
+    dead = rng.choice(N, N // 100, replace=False)
+    t = time.perf_counter()
+    view.set_rows_invalid(dead)
+    out["delete_1pct_ms"] = (time.perf_counter() - t) * 1e3
+    keep = rng.random(N) < 0.75  # the filter: 3 rows in 4
+    flt = torch.from_numpy(keep).cuda()
+    live = view._host_mask[:N] & keep
+    picks = rng.choice(np.flatnonzero(live), Q, replace=False)
+    q = (bf16[torch.from_numpy(picks).cuda()].float()
+         + 0.02 * torch.randn((Q, D), generator=g, device="cuda"))
+    q_host = q.cpu().numpy()
+    before = S4.KERNEL.launches
+    t = time.perf_counter()
+    scores, idx = view.search(q_host, k=k, extra_mask=flt)
+    out["first_search_ms_host_clock"] = (time.perf_counter() - t) * 1e3
+    out["b3_launches_per_search"] = S4.KERNEL.launches - before
+    out["search_ms_host_clock"] = host_ms(
+        lambda: view.search(q_host, k=k, extra_mask=flt))
+    if not live[idx].all():
+        raise AssertionError("a deleted or filtered-out row came back")
+    if list(idx[:, 0]) != list(picks):
+        raise AssertionError("a query's own row is not its top hit")
+    # The yardstick: the same bf16 rows' exact cosine, chunk by chunk.
+    qn = q / q.norm(dim=1, keepdim=True)
+    qb = qn.to(torch.bfloat16).float()
+    live_dev = torch.from_numpy(live).cuda()
+    best_s = torch.full((Q, k), -2.0, device="cuda")
+    best_i = torch.zeros((Q, k), dtype=torch.int64, device="cuda")
+    for lo in range(0, N, chunk):
+        s = qb @ bf16[lo: lo + chunk].float().T
+        s = torch.where(live_dev[lo: lo + chunk][None], s, -2.0)
+        cs, ci = torch.topk(torch.cat([best_s, s], 1), k, dim=1)
+        cat_i = torch.cat([best_i, torch.arange(
+            lo, lo + chunk, device="cuda").expand(Q, -1)], 1)
+        best_s, best_i = cs, torch.gather(cat_i, 1, ci)
+    want_i = best_i.cpu().numpy()
+    want = {(qi, int(r)): float(s) for qi, (rs, ss) in enumerate(zip(
+        want_i, best_s.cpu().numpy())) for r, s in zip(rs, ss)}
+    got = {(qi, int(r)): float(s) for qi, (rs, ss) in enumerate(zip(
+        idx, scores)) for r, s in zip(rs, ss)}
+    common = set(got) & set(want)
+    err = max(abs(got[key] - want[key]) for key in common)
+    if err > 1e-5:
+        raise AssertionError(f"capacity hit scores off the bf16 cosine by "
+                             f"{err}")
+    out.update(
+        rows=N, dim=D, queries=Q, k=k, deleted=len(dead),
+        filter_keeps=float(keep.mean()),
+        top10_overlap_with_exact=len(common) / (Q * k),
+        hit_score_max_abs_err=err,
+        residency_gb=(bf16.numel() * 2 + packed.numel() + scales.numel() * 4
+                      + view.dev_mask.numel()) / 1e9,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if out["top10_overlap_with_exact"] < 0.9:
+        raise AssertionError(f"capacity top-10 overlap {out}")
+    log("capacity_search", **out)
+    return out, view, q
+
+
+def capacity_kernel_timing(torch, S4, search, view, q) -> dict:
+    """B3 alone at the capacity view's N (device time, CUDA events) beside
+    its byte bound and a bf16 matmul over the same rows, and its scores held
+    bit for bit against the plain version on 65,536-row slices: at the
+    start, across the first row past 2^31 packed bytes, and at the end. The
+    plain version of the whole would need 43 GB of float64, so it is timed
+    on one slice only (`plain_ms_65536_rows`)."""
+    Q, D = q.shape
+    N = view.n_rows
+    qn = search.l2_normalize(q)
+    q_i8 = search.quantize_rows_int8(qn)
+    pen = torch.where(view.dev_mask, 0.0, search.NEG_INF).to(torch.float32)
+    packed, scales = view.dev_packed, view.dev_scales
+    got = S4.int4_scan_scores(q_i8, packed, scales, pen)
+    torch.cuda.synchronize()
+    line = (1 << 31) // (D // 2)  # the first row past 2^31 packed bytes
+    if packed.shape[0] <= line:
+        raise AssertionError(f"{packed.shape[0]} packed rows do not cross "
+                             "2^31 bytes")
+    n_rows, span, err = packed.shape[0], 65_536, 0.0
+    for lo in (0, line - span // 2, n_rows - span):
+        sl = slice(lo, lo + span)
+        want = S4.int4_scan_scores_plain(q_i8, packed[sl], scales[sl],
+                                         pen[sl])
+        err = max(err, float((got[:, sl] - want).abs().max()))
+    del got
+    if err != 0.0:
+        raise AssertionError(f"B3 at {n_rows} rows is off its plain version "
+                             f"by {err} (bit-exact expected)")
+    n_bytes = Q * D + N * D // 2 + 8 * N + 4 * Q * N
+    b_ms, b_by = bound_ms(n_bytes, 2 * Q * N * D, "int8")
+    qb = qn.to(torch.bfloat16)
+    sl = slice(0, span)
+    out = {"shape": [Q, N, D], "packed_bytes": N * D // 2,
+           "max_abs_err": err, "checked_rows": [0, line - span // 2,
+                                                 n_rows - span],
+           "ms": cuda_ms(torch, lambda: S4.int4_scan_scores(
+               q_i8, packed, scales, pen), reps=10),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bf16_matmul_ms": cuda_ms(torch, lambda: qb @ view.dev_bf16.T,
+                                     reps=10),
+           "plain_ms": None,
+           "plain_ms_65536_rows": cuda_ms(
+               torch, lambda: S4.int4_scan_scores_plain(
+                   q_i8, packed[sl], scales[sl], pen[sl]), reps=3)}
+    log("capacity_b3", **out)
+    return out
+
+
+def analysis_phase(port, csv_paths) -> dict:
+    """analyze(make_plots=False) on the experiment path's result CSVs: the
+    summary and the eight metric files with the reference's names."""
+    out = {}
+    for mode, path in csv_paths.items():
+        t = time.perf_counter()
+        res = port["analysis"].analyze(path, make_plots=False)
+        names = sorted(p.name for p in (path.parent / "metrics").iterdir())
+        if names != sorted(f"metrics_{c}_{d}.csv" for c in ("pre_a", "pre_b")
+                           for d in ("average", "centroid", "medoid",
+                                     "weighted")) \
+                or not res["summary_path"].exists() \
+                or len(res["summary"]["case"]) != 8:
+            raise AssertionError(f"{mode}: analysis wrote {names}")
+        if mode == "same_class" and any(
+                m["precision"][m["label"].index("accuracy")] != 1.0
+                for m in res["metrics"].values()):
+            raise AssertionError("same_class accuracy is not 1")
+        out[mode] = {"seconds": time.perf_counter() - t,
+                     "metric_files": len(names)}
+    log("analysis", **out)
     return out
 
 
@@ -1421,8 +1754,9 @@ def main(argv=None) -> int:
         import torch
         import torch.nn.functional as F
 
+        from retrieval_based_object_detection_tpu_torch import native
         from retrieval_based_object_detection_tpu_torch.gallery import (
-            schema, search, store,
+            capacity, persist, schema, search, store,
         )
         from retrieval_based_object_detection_tpu_torch.models.clip import (
             model as clip_model, preprocess,
@@ -1438,7 +1772,7 @@ def main(argv=None) -> int:
             int4_scan as S4, int8_scan as S, medoid as M,
         )
         from retrieval_based_object_detection_tpu_torch.pipelines import (
-            delegates, embed, experiments, segment, serve,
+            analysis, delegates, embed, experiments, segment, serve,
         )
         from retrieval_based_object_detection_tpu_torch.train import (
             loop as train_loop, train,
@@ -1462,7 +1796,8 @@ def main(argv=None) -> int:
             "loader": loader, "clip_attention": CA, "train": train,
             "train_loop": train_loop, "checkpoint": checkpoint, "sam": sam,
             "sam_encoder": sam_encoder, "sam_decoder": sam_decoder,
-            "segment": segment}
+            "segment": segment, "persist": persist, "capacity": capacity,
+            "native": native, "analysis": analysis}
 
     # Full f32 on the card: no TF32 in matmuls or convolutions.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1533,7 +1868,22 @@ def main(argv=None) -> int:
             f"offline kernel launches {launches} for {encodes} encodes, "
             f"{offline['groups_over_threshold']} large groups and the int4 "
             "searches")
-    del big
+
+    # The gallery path (deletes, persistence, the capacity tier): launch
+    # counts from here to its end only.
+    t_gallery = time.perf_counter()
+    zero_counts()
+    tombstones_phase(torch, np, port, big, queries, picks, args.seed)
+    persist_phase(torch, np, port, big, queries)
+    cap_out, view, cap_q = capacity_phase(torch, np, port, big, queries,
+                                          args.seed)
+    by_path["gallery"] = launches = read_counts()
+    if launches["B2"] < 1 or launches["B3"] < 1:
+        raise AssertionError(f"gallery path launches {launches}")
+    log("gallery_path", seconds=time.perf_counter() - t_gallery,
+        launches=launches)
+    cap_b3 = capacity_kernel_timing(torch, S4, search, view, cap_q)
+    del big, view, cap_q
     torch.cuda.empty_cache()
 
     # The training path: launch counts from here to its end only.
@@ -1582,7 +1932,9 @@ def main(argv=None) -> int:
         row("int8_scan", "B2", SCAN_SOURCE, SCAN_REPLACES, scan,
             [16, 1 << 20, 512]),
         row("int4_scan", "B3", INT4_SOURCE, INT4_REPLACES, int4,
-            [16, 1 << 20, 512]),
+            [16, 1 << 20, 512],
+            capacity_10m={**cap_b3, "launches_per_search":
+                          cap_out["b3_launches_per_search"]}),
         row("medoid_sums", "B4", MEDOID_SOURCE, MEDOID_REPLACES, med,
             [12_000, 512]),
         row("clip_attention_bwd", "B5", ATTN_SOURCE, BWD_REPLACES,

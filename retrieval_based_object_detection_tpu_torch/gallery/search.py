@@ -8,6 +8,10 @@ Tiers:
   * ``masked_cosine_topk(exact=True)`` — f32 (the caller keeps TF32 off).
   * ``masked_cosine_topk(exact=False)`` — bf16 rows and queries, f32
     scores.
+  * ``masked_metric_topk`` — the non-cosine metrics (dot, euclid,
+    manhattan) over raw rows; ``masked_cosine_scores`` — the full masked
+    cosine matrix. Their exact products are f32 under the same rule as the
+    exact cosine tier: the caller keeps TF32 off.
   * ``int8_scan_topk`` — the int8 scan (kernel B2 on CUDA) → top
     ``rescore`` candidates → exact f32 rescore. ``int8_cosine_topk`` is its
     exact twin over a plain integer matmul.
@@ -35,6 +39,9 @@ from retrieval_based_object_detection_tpu_torch.ops.int8_scan import (
 )
 
 NEG_INF = -1e30
+
+# Rows per |q - g| pass of the manhattan metric (JAX's chunk).
+_L1_CHUNK = 1024
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -69,6 +76,69 @@ def masked_cosine_topk(
     return torch.topk(scores, k, dim=1)
 
 
+def _dots_f32(q: torch.Tensor, g: torch.Tensor, exact: bool
+              ) -> torch.Tensor:
+    """[Q, N] f32 dot products of f32 queries and rows (any float dtype).
+
+    ``exact=True`` is JAX's ``Precision.HIGHEST``: an f32 product, with
+    TF32 off as for the exact cosine tier (the caller keeps it off, which
+    is PyTorch's default). ``exact=False`` multiplies bf16-rounded operands
+    with f32 scores, as the bf16 cosine tier does."""
+    if exact:
+        return q @ g.to(torch.float32).T
+    return (q.to(torch.bfloat16).to(torch.float32)
+            @ g.to(torch.bfloat16).to(torch.float32).T)
+
+
+def masked_metric_topk(
+    queries: torch.Tensor,  # [Q, D] raw (NOT normalised)
+    gallery: torch.Tensor,  # [N, D] raw rows, padded
+    mask: torch.Tensor,     # [N] bool
+    k: int,
+    distance: str,          # "dot" | "euclid" | "manhattan"
+    exact: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k for the non-cosine metrics the reference's collection manager
+    offers (qdrant_manager.py:61-65). Scores are higher-is-better: the dot
+    product, or the NEGATIVE L2 / L1 distance. euclid expands
+    ‖q‖² − 2q·g + ‖g‖²; manhattan has no matmul form and walks the rows in
+    chunks of |q − g| sums (``exact`` does not change it)."""
+    q = queries.to(torch.float32)
+    g = gallery.to(torch.float32)
+    if distance == "manhattan":
+        scores = torch.empty((q.shape[0], g.shape[0]), dtype=torch.float32,
+                             device=g.device)
+        for lo in range(0, g.shape[0], _L1_CHUNK):
+            c = g[lo: lo + _L1_CHUNK]
+            scores[:, lo: lo + len(c)] = -torch.sum(
+                torch.abs(q[:, None, :] - c[None, :, :]), dim=-1)
+    elif distance in ("dot", "euclid"):
+        scores = _dots_f32(q, g, exact)
+        if distance == "euclid":
+            q_sq = torch.sum(q * q, dim=1, keepdim=True)
+            g_sq = torch.sum(g * g, dim=1)
+            d2 = torch.clamp(q_sq - 2.0 * scores + g_sq[None, :], min=0.0)
+            scores = -torch.sqrt(d2)
+    else:
+        raise ValueError(f"unsupported distance: {distance}")
+    scores = torch.where(mask[None, :], scores, NEG_INF)
+    return torch.topk(scores, k, dim=1)
+
+
+def masked_cosine_scores(
+    queries: torch.Tensor,
+    gallery: torch.Tensor,
+    mask: torch.Tensor,
+    exact: bool = True,
+) -> torch.Tensor:
+    """Full [Q, N] masked cosine similarity matrix (for score
+    distributions); masked rows score NEG_INF."""
+    q = l2_normalize(queries)
+    g = l2_normalize(gallery)
+    scores = q @ g.T  # f32 either way; ``exact`` only names JAX's precision
+    return torch.where(mask[None, :], scores, NEG_INF)
+
+
 def pad_rows(n: int, multiple: int = 256) -> int:
     """Round a row count up to a multiple (room for appends in place)."""
     return max(multiple, -(-n // multiple) * multiple)
@@ -81,9 +151,15 @@ def quantize_rows_int8(normalized_rows: torch.Tensor) -> torch.Tensor:
                        ).to(torch.int8)
 
 
-def _rescore(qn, gallery_f32, cand_s, cand_i, k, live):
-    rows = gallery_f32[cand_i]  # [Q, r, D]
-    exact = torch.einsum("qd,qrd->qr", qn.to(rows.dtype), rows)
+def _rescore(qn, gallery_rows, cand_s, cand_i, k, live):
+    """Rescore the candidates against ``gallery_rows`` (f32, or the
+    capacity tier's bf16 mirror) and keep the best ``k``. bf16 rows meet a
+    bf16-rounded query, multiplied in f32 with f32 scores, as JAX's
+    ``preferred_element_type=jnp.float32`` does: a torch bf16 einsum would
+    round the scores themselves to bf16."""
+    rows = gallery_rows[cand_i]  # [Q, r, D]
+    q = qn.to(rows.dtype).to(torch.float32)
+    exact = torch.einsum("qd,qrd->qr", q, rows.to(torch.float32))
     exact = torch.where(live, exact, NEG_INF)
     best_s, pos = torch.topk(exact, k, dim=1)
     return best_s, torch.gather(cand_i, 1, pos)
@@ -156,15 +232,17 @@ def int4_scan_topk(
     queries: torch.Tensor,      # [Q, D] unnormalised f32
     packed: torch.Tensor,       # [N, D/2] int8 (pack_rows_int4)
     scales: torch.Tensor,       # [N] f32 per-row scales
-    gallery_f32: torch.Tensor,  # [N, D] normalised f32 (for exact rescoring)
+    gallery_f32: torch.Tensor,  # [N, D] normalised rows for rescoring —
+    #                             f32 (exact), or bf16 (the capacity tier)
     mask: torch.Tensor,         # [N] bool
     k: int,
     rescore: int = 256,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Half-bandwidth serving scan: scale-compensated int4 scores (kernel
-    B3, in-kernel filter penalty) → top-``rescore`` candidates → exact f32
-    rescore. Hit scores are exact cosines; the top-k SET is approximate at
-    the margin (4-bit resolution)."""
+    B3, in-kernel filter penalty) → top-``rescore`` candidates → rescore
+    against the full-precision rows. Hit scores are exact cosines with f32
+    rows (with bf16 rows, the bf16 values' cosine); the top-k SET is
+    approximate at the margin (4-bit resolution)."""
     N = gallery_f32.shape[0]
     qn = l2_normalize(queries)
     q_i8 = quantize_rows_int8(qn)

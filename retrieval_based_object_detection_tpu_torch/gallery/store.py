@@ -1,23 +1,29 @@
 """In-process vector gallery with Qdrant-equivalent semantics.
 
 Payloads live host-side in columnar NumPy (``schema.PayloadColumns``),
-vectors in a host float32 buffer mirrored lazily onto the device as padded,
-L2-normalised tensors. Filters lower to a boolean row mask; the device does
-one masked matmul (or the int8 scan) plus top-k.
+vectors in a host float32 buffer (optionally a disk-backed memmap,
+``vectors_path``) mirrored lazily onto the device as padded tensors,
+L2-normalised for cosine collections. Filters lower to a boolean row mask;
+the device does one masked matmul (or a quantised scan) plus top-k.
 
-This is the serving and experiment subset of the JAX package's
-``gallery/store.py``: ``upsert``, ``count``, ``scroll``/``scroll_all``,
-``distinct``, ``vectors_matching``, ``retrieve``, ``get_by_path`` (with the
-resolved-path fallback), incrementally patched f32/bf16/int8/int4 device
-mirrors, and ``search`` with methods exact/bf16/int8/int4 under the same
-auto-routing and constants. What it leaves out raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+The port of the JAX package's ``gallery/store.py`` for one device:
+``upsert``, tombstone ``delete`` with lazy ``compact`` / ``maintain``,
+``count``, ``scroll``/``scroll_all``, ``distinct``, ``vectors_matching``,
+``retrieve``, ``get_by_path`` (with the resolved-path fallback), lazily
+materialised ids after a binary snapshot load (``gallery.persist``),
+incrementally patched f32/bf16/int8/int4 device mirrors, the writable
+capacity view (``gallery.capacity``), and ``search`` over exact / bf16 /
+int8 / int4 / capacity under the same auto-routing, for all four metrics.
+The multi-device sharded tier raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Iterable, Sequence
 
@@ -29,6 +35,7 @@ from retrieval_based_object_detection_tpu_torch.gallery.schema import (
     Filter,
     Payload,
     PayloadColumns,
+    _gc_paused,
 )
 from retrieval_based_object_detection_tpu_torch.utils.platform import (
     resolve_device,
@@ -41,9 +48,37 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"(ROADMAP.md queue A, item {item})")
 
 
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``, always as a copy: ``torch.from_numpy``
+    aliases host memory, and on the CPU ``.to(device)`` keeps the alias,
+    so a later write to a reused staging buffer or a live store buffer
+    would reach the device value."""
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def _replay_view_ops(view, ops: list[tuple], vectors: np.ndarray) -> None:
+    """Drive a writable serving view (``CapacitySearcher``) through a
+    pending-op log, IN ORDER. ``("rows", sorted_row_array)`` replays
+    contiguous runs as one incremental patch each; ``("mask", [rows])``
+    tombstones. Raises ValueError when the view's build-time headroom
+    overflows (the caller rebuilds once)."""
+    for op in ops:
+        if op[0] == "rows":
+            rows = op[1]
+            run_start = 0  # contiguous runs -> one patch each
+            for i in range(1, len(rows) + 1):
+                if i == len(rows) or rows[i] != rows[i - 1] + 1:
+                    lo = int(rows[run_start])
+                    hi = int(rows[i - 1]) + 1
+                    view.upsert_rows(lo, vectors[lo:hi])
+                    run_start = i
+        else:
+            view.set_rows_invalid(op[1])
+
+
 @dataclass
 class Record:
-    """One gallery point, as returned by scroll/search."""
+    """One gallery point, as returned by scroll/retrieve/search."""
 
     id: str
     payload: Payload
@@ -61,42 +96,96 @@ class Gallery:
     INT8_SCAN_MIN_ROWS = 131_072
 
     # Budget of the standard serving mirrors (f32 + int8, ~5 bytes/dim) on
-    # one 80 GB H100, kept for the capacity tier (ROADMAP.md queue A, item
-    # A.4), which auto search will route to past it. Of the card's 80 GB
-    # (74.5 GiB), 48 GiB go to the mirrors; the rest holds what a search
-    # allocates beside them at that size (the [16, N] f32 scores of a
-    # query batch and their top-k workspace, ~0.2 KB a row: 4 GiB at the
-    # 20M rows of 512-d that 48 GiB hold), the capacity view's packed rows
-    # while it is built from the f32 mirror (0.5 bytes/dim: 5 GiB), the
-    # models and the allocator's slack. Until A.4 lands auto search never
-    # picks "capacity": it stays on int8 (or bf16) past this size too.
+    # one 80 GB H100; past it an inexact search auto-routes to the capacity
+    # tier (bf16 rescore mirror + int4 planes, ~2.5 bytes/dim). Of the
+    # card's 80 GB (74.5 GiB), 48 GiB go to the mirrors; the rest holds
+    # what a search allocates beside them at that size (the [16, N] f32
+    # scores of a query batch and their top-k workspace, ~0.2 KB a row:
+    # 4 GiB at the 20M rows of 512-d that 48 GiB hold), the capacity view's
+    # packed rows while it is built (0.5 bytes/dim: 5 GiB), the models and
+    # the allocator's slack.
     CAPACITY_AUTO_BYTES = 48 << 30
 
     _SYNC_CHUNK = 4096  # rows per incremental device update
+
+    # Lazy compaction fires once tombstones pass this fraction of the
+    # physical rows (and a floor, so small galleries never bother).
+    _COMPACT_DEAD_FRACTION = 0.25
+    _COMPACT_DEAD_MIN = 1024
+    # Compaction drops every device mirror and the capacity view. Past
+    # this physical row count (or whenever the capacity view is live) a
+    # threshold-crossing delete DEFERS compaction to an explicit
+    # ``maintain()`` call instead of compacting inline.
+    _COMPACT_INLINE_MAX_ROWS = 1 << 20
 
     def __init__(self, name: str, dim: int = 512, capacity: int = 1024,
                  distance: str = "cosine",
                  vectors_path: str | None = None,
                  device: str | torch.device = "cuda"):
+        # The four metrics the reference's collection manager offers
+        # (qdrant_manager.py:61-65).
         if distance not in ("cosine", "dot", "euclid", "manhattan"):
             raise ValueError(f"unsupported distance: {distance}")
-        if distance != "cosine":
-            raise _not_ported(f"distance={distance!r}", "A.2")
-        if vectors_path:
-            raise _not_ported("vectors_path (memmap vectors)", "A.3")
         self.name = name
         self.dim = dim
         self.distance = distance
         self.device = resolve_device(device)
         self._capacity = capacity
-        self._vectors = np.zeros((capacity, dim), dtype=np.float32)
+        # ``vectors_path`` makes the host vector buffer a disk-backed
+        # np.memmap instead of RAM (10M x 512 is 20 GB of f32). Growth
+        # resizes the backing file (truncate + remap, no copy).
+        self._vectors_path = vectors_path
+        if vectors_path:
+            if os.path.exists(vectors_path) and \
+                    os.path.getsize(vectors_path) > 0:
+                # A fresh Gallery is an EMPTY collection: zero-truncating
+                # existing rows here would lose them. Snapshots load
+                # through gallery.persist, which adopts the vector block.
+                raise FileExistsError(
+                    f"vectors_path {vectors_path!r} already exists and "
+                    "is non-empty; constructing a Gallery would "
+                    "truncate it. Load snapshots via gallery.persist, "
+                    "or remove the file to start an empty collection.")
+            self._vectors = np.memmap(vectors_path, dtype=np.float32,
+                                      mode="w+", shape=(capacity, dim))
+        else:
+            self._vectors = np.zeros((capacity, dim), dtype=np.float32)
         self._payloads = PayloadColumns(capacity)
-        self._ids: list[str] = []
-        self._id_to_row: dict[str, int] = {}
+        # Point ids + id→row map, LAZY after binary snapshot loads: the
+        # loader parks the raw fixed-width id table in ``_ids_arr`` and
+        # leaves ``_id_map`` None; the list/dict materialise on first use.
+        # Every code path uses ``self._ids`` / ``self._id_to_row``.
+        self._ids_list: list[str] | None = []
+        self._ids_arr = None           # np.ndarray[S*] | None
+        self._id_map: dict[str, int] | None = {}
+        # Sorted probe over the raw id table: read-only id lookups on a
+        # lazily loaded gallery binary-search the fixed-width bytes
+        # instead of building the str dict. Dropped once the dict exists.
+        self._ids_sorted = None        # np.ndarray[S*] | None
+        self._ids_order = None         # np.ndarray[int64] | None
+        # Tombstone deletes: rows are masked dead in place (the device
+        # mirrors stay valid — only the cached filter masks refresh) and
+        # physically reclaimed by a lazy compaction.
+        self._alive = np.ones(capacity, dtype=bool)
+        self._n_dead = 0
+        # Set when a threshold-crossing delete deferred compaction;
+        # cleared by compact().
+        self._compact_due = False
         # Monotonic write sequence: bumps on every mutation. Cheap
         # staleness probe for consumers of derived state (the serving
         # endpoint's delegate matrix).
         self._wseq = 0
+        # Incremental-snapshot tracking (persist.save_gallery): point ids
+        # written/deleted since the last save, rows tombstoned since then,
+        # and whether live row numbering still matches the base snapshot
+        # (compaction renumbers).
+        self._snap_dirty: set[str] = set()
+        self._snap_deleted: set[str] = set()
+        self._snap_dead_rows: set[int] = set()
+        self._snap_rows_valid = True
+        self._snap_root: str | None = None  # root of the current base
+        self._snap_id: str | None = None    # base snapshot identity
+        self._snap_seq = 0                  # last delta sequence number
         # Device mirrors (lazy per tier, patched INCREMENTALLY after small
         # writes — see _sync_mirrors). All share one padded row count.
         self._padded = 0
@@ -112,51 +201,186 @@ class Gallery:
         self._dirty_hi = 0
         # Device filter masks keyed by canonical filter; cleared on writes.
         self._mask_cache: dict[Any, torch.Tensor] = {}
-        # Guards lazy mirror and mask builds under concurrent readers.
-        self._view_mut = threading.RLock()
+        # Capacity serving tier (method="capacity", auto past
+        # CAPACITY_AUTO_BYTES): a lazily built WRITABLE CapacitySearcher
+        # kept in sync through the pending-op log (row sets from upserts,
+        # mask rows from deletes), so small writes patch tiles.
+        self._cap_view = None
+        self._cap_pending: list[tuple] = []
+        self._cap_mask_cache: dict[Any, torch.Tensor] = {}
+        # Capacity-plane sidecar (gallery/planes.py), recorded by the
+        # snapshot loader; checked against the snapshot identity when the
+        # view is built (a stale sidecar falls back to the device build).
+        self._planes_path: str | None = None
         # Resolved-path fallback index for get_by_path (lazy, maintained
         # incrementally across writes — see _patch_resolved). Pure string
-        # normalisation, no per-row filesystem syscalls. The port has no
-        # deletes yet, so every row is alive and the index needs no
-        # liveness checks.
+        # normalisation, no per-row filesystem syscalls.
         self._resolved_paths: dict[str, int] | None = None
         self._resolved_back: dict[int, str] = {}   # row -> indexed key
         # Rows whose key lost to an earlier row (duplicate resolved
-        # paths): promoted into the index when the winner is overwritten.
+        # paths): promoted into the index when the winner is
+        # deleted/overwritten, so a live duplicate stays findable.
         self._resolved_dups: dict[str, list[int]] = {}
         self._resolved_dirty: set[int] = set()     # rows to re-index
         self._resolved_hi = 0                      # rows [0, hi) indexed
+        # Guards LAZY builds under concurrent readers: mirror and view
+        # builds and syncs, pending-op replays, the id materialisations.
+        # Reentrant: the build paths nest.
+        self._view_mut = threading.RLock()
+
+    # ------------------------------------------------------------ ids
+    @property
+    def _ids(self) -> list[str]:
+        if self._ids_list is None:
+            with self._view_mut:
+                if self._ids_list is not None:  # lost the build race
+                    return self._ids_list
+                arr = self._ids_arr
+                # numpy 'S' access strips the trailing NUL padding.
+                with _gc_paused():
+                    built = ([b.decode("utf-8") for b in arr.tolist()]
+                             if arr is not None else [])
+                # Publish the list BEFORE dropping the raw table, so
+                # concurrent _id_at readers see one or the other.
+                self._ids_list = built
+                self._ids_arr = None
+        return self._ids_list
+
+    @_ids.setter
+    def _ids(self, value) -> None:
+        self._ids_list = list(value)
+        self._ids_arr = None
+        self._ids_sorted = None
+        self._ids_order = None
+
+    def _id_at(self, row: int) -> str:
+        """One row's id without materialising the full str list (search
+        and retrieve results decode only the rows they return)."""
+        lst = self._ids_list
+        if lst is not None:
+            return lst[row]
+        arr = self._ids_arr
+        if arr is None:  # materialised between the checks — re-read
+            return self._ids[row]
+        return arr[row].decode("utf-8")
+
+    def _row_of(self, pid: str) -> int | None:
+        """Read-only id -> live row lookup. Prefers the materialised dict;
+        on a lazily loaded gallery it binary-searches the raw id table.
+        Tombstoned rows are skipped; a re-added id has two table entries
+        and resolves to the alive one."""
+        if self._id_map is not None:
+            return self._id_map.get(pid)
+        arr = self._ids_arr
+        if arr is None:  # ids materialised but map not: build the map
+            return self._id_to_row.get(pid)
+        if self._ids_sorted is None or \
+                len(self._ids_sorted) != len(arr):
+            with self._view_mut:
+                if self._ids_sorted is None or \
+                        len(self._ids_sorted) != len(arr):
+                    order = np.argsort(arr, kind="stable")
+                    self._ids_order = order
+                    self._ids_sorted = arr[order]
+        b = pid.encode("utf-8")
+        if len(b) > arr.dtype.itemsize:
+            return None
+        lo = int(np.searchsorted(self._ids_sorted, b, side="left"))
+        hi = int(np.searchsorted(self._ids_sorted, b, side="right"))
+        for i in range(lo, hi):
+            row = int(self._ids_order[i])
+            if self._alive[row]:
+                return row
+        return None
+
+    @property
+    def _id_to_row(self) -> dict[str, int]:
+        if self._id_map is None:
+            with self._view_mut:
+                return self._build_id_map()
+        return self._id_map
+
+    def _build_id_map(self) -> dict[str, int]:
+        # Body of the lazy _id_to_row build, under _view_mut.
+        if self._id_map is None:
+            with _gc_paused():
+                ids = self._ids
+                m = dict(zip(ids, range(len(ids))))
+                if self._n_dead:
+                    # Drop tombstoned rows; a re-added id maps to its LIVE
+                    # row (later wins in the zip), so only entries still
+                    # pointing at a dead row go.
+                    for r in np.nonzero(~self._alive[: len(ids)])[0]:
+                        pid = ids[int(r)]
+                        if m.get(pid) == int(r):
+                            del m[pid]
+                self._id_map = m
+            self._ids_sorted = None  # the dict supersedes the probe
+            self._ids_order = None
+        return self._id_map
+
+    @_id_to_row.setter
+    def _id_to_row(self, value) -> None:
+        self._id_map = value
 
     # ------------------------------------------------------------ size
     @property
     def _nrows(self) -> int:
+        """Physical row count including tombstoned rows (mirror and mask
+        sizing); ``len(self)`` is the LIVE point count."""
+        if self._ids_list is None and self._ids_arr is not None:
+            return int(self._ids_arr.shape[0])  # no materialisation
         return len(self._ids)
 
     def __len__(self) -> int:
-        return self._nrows
+        return self._nrows - self._n_dead
+
+    def _mask_live(self, flt: Filter | None) -> np.ndarray:
+        """Filter mask over physical rows, with tombstoned rows excluded —
+        the one mask every read path uses."""
+        m = self._payloads.mask(flt)
+        if self._n_dead:
+            m = m & self._alive[: len(m)]
+        return m
 
     def count(self, flt: Filter | None = None) -> int:
         if flt is None:
             return len(self)
-        return int(self._payloads.mask(flt).sum())
+        return int(self._mask_live(flt).sum())
 
     @property
     def write_seq(self) -> int:
-        """Monotonic mutation counter. Consumers caching derived state
-        compare this to detect staleness."""
+        """Monotonic mutation counter (upsert/delete/compact). Consumers
+        caching derived state compare this to detect staleness."""
         return self._wseq
 
     # ------------------------------------------------------------ writes
     def _ensure_capacity(self, extra: int) -> None:
+        # _nrows, not len(self._ids): growth must not materialise a lazily
+        # loaded id table.
         need = self._nrows + extra
         if need <= self._capacity:
             return
         new_cap = self._capacity
         while new_cap < need:
             new_cap *= 2
-        vecs = np.zeros((new_cap, self.dim), dtype=np.float32)
-        vecs[: self._capacity] = self._vectors
-        self._vectors = vecs
+        if self._vectors_path and isinstance(self._vectors, np.memmap):
+            # Grow the backing file in place: flush dirty pages, extend,
+            # remap. No 2x transient RAM, no data copy.
+            self._vectors.flush()
+            del self._vectors  # release the old mapping before resize
+            with open(self._vectors_path, "r+b") as f:
+                f.truncate(new_cap * self.dim * 4)
+            self._vectors = np.memmap(self._vectors_path,
+                                      dtype=np.float32, mode="r+",
+                                      shape=(new_cap, self.dim))
+        else:
+            vecs = np.zeros((new_cap, self.dim), dtype=np.float32)
+            vecs[: self._capacity] = self._vectors
+            self._vectors = vecs
+        alive = np.ones(new_cap, dtype=bool)
+        alive[: self._capacity] = self._alive
+        self._alive = alive
         self._payloads.grow(new_cap)
         self._capacity = new_cap
 
@@ -202,13 +426,21 @@ class Gallery:
                 row = old_len + len(new_pids)
                 new_pids.append(pid)
             rows[i] = row
-        # Grow BEFORE any state mutation: a failed grow leaves no phantom
-        # ids without backing rows.
+        # Grow only for genuinely NEW rows, BEFORE any state mutation: a
+        # failed grow leaves no phantom ids without backing rows, and an
+        # overwrite on a snapshot-adopted buffer (no headroom) reallocates
+        # nothing.
         self._ensure_capacity(len(new_pids))
         for j, pid in enumerate(new_pids):
             self._ids.append(pid)
             self._id_to_row[pid] = old_len + j
-        self._vectors[rows] = vectors
+        if (rows[0] == old_len and rows[-1] == old_len + len(rows) - 1
+                and len(self._ids) == old_len + len(rows)):
+            # Pure append (the bulk-ingest path): a slice assignment
+            # streams sequentially into a disk-backed memmap.
+            self._vectors[old_len: old_len + len(rows)] = vectors
+        else:
+            self._vectors[rows] = vectors
         self._payloads.set_rows(rows, pls)
         # Only OVERWRITES of present rows enter the dirty range; the
         # appended tail is tracked by _synced < n.
@@ -217,28 +449,171 @@ class Gallery:
             self._mark_dirty(int(existing.min()), int(existing.max()) + 1)
         else:
             self._mask_cache.clear()  # appends change the validity mask
+        if self._cap_view is not None:
+            # EXACT row sets, not covering ranges: replaying a covering
+            # span would mark every row in between valid, reviving the
+            # tombstones inside it.
+            written = np.unique(rows)
+            if len(self._ids) > old_len:
+                written = np.union1d(
+                    written, np.arange(old_len, len(self._ids)))
+            self._cap_pending.append(("rows", written))
+        self._cap_mask_cache.clear()
         self._patch_resolved(rows)
         self._wseq += 1
+        if self._snap_id is not None:
+            # Dirty tracking feeds DELTA saves only: before the first base
+            # snapshot every save is a full rewrite.
+            self._snap_dirty.update(ids)
+            self._snap_deleted.difference_update(ids)  # re-added points
         return len(ids)
+
+    def upsert_points(
+        self, points: Iterable[tuple[str, np.ndarray, Payload]]
+    ) -> int:
+        pts = list(points)
+        if not pts:
+            return 0
+        ids = [p[0] for p in pts]
+        vecs = np.stack([np.asarray(p[1], dtype=np.float32) for p in pts])
+        pls = [p[2] for p in pts]
+        return self.upsert(ids, vecs, pls)
 
     def delete(self, ids: Sequence[str] | None = None,
                flt: Filter | None = None) -> int:
-        raise _not_ported("Gallery.delete (tombstones)", "A.2")
+        """Delete by explicit IDs or by filter; returns number removed.
 
-    def compact(self) -> int:
-        raise _not_ported("Gallery.compact", "A.2")
+        Deletes TOMBSTONE: the row is masked dead in place and vanishes
+        from every read path at once, but the device mirrors are NOT
+        rebuilt (only the cached filter masks refresh), so a delete plus
+        a re-query costs a mask build, not a mirror upload. ``compact()``
+        reclaims the space once the dead fraction passes
+        _COMPACT_DEAD_FRACTION."""
+        n = self._nrows
+        drop = np.zeros(n, dtype=bool)
+        if ids is not None:
+            for pid in ids:
+                row = self._id_to_row.get(pid)
+                if row is not None:
+                    drop[row] = True
+        if flt is not None:
+            drop |= self._mask_live(flt)
+        drop &= self._alive[:n]
+        if not drop.any():
+            return 0
+        dropped = [int(r) for r in np.nonzero(drop)[0]]
+        removed = len(dropped)
+        self._alive[:n][drop] = False
+        self._n_dead += removed
+        back = self._resolved_back
+        for r in dropped:
+            pid = self._ids[r]
+            if self._snap_id is not None:  # delta tracking (see upsert)
+                self._snap_deleted.add(pid)
+                self._snap_dirty.discard(pid)
+                self._snap_dead_rows.add(r)
+            if self._id_to_row.get(pid) == r:
+                del self._id_to_row[pid]
+            self._payloads.clear_path(r)
+            self._resolved_dirty.discard(r)
+            key = back.pop(r, None)
+            if key is not None:
+                self._resolved_remove(r, key)
+        self._mask_cache.clear()  # validity changed; mirrors still good
+        self._cap_mask_cache.clear()
+        if self._cap_view is not None:
+            self._cap_pending.append(("mask", dropped))
+        self._wseq += 1
+        if (self._n_dead >= self._COMPACT_DEAD_MIN
+                and self._n_dead >= self._COMPACT_DEAD_FRACTION * n):
+            if self._cap_view is not None or \
+                    n >= self._COMPACT_INLINE_MAX_ROWS:
+                # Backpressure: compacting here would rebuild every mirror
+                # and the capacity view mid-request. Flag it for
+                # maintain() and keep serving off tombstones.
+                if not self._compact_due:
+                    self._compact_due = True
+                    print(f"[gallery] {self.name}: {self._n_dead}/{n} "
+                          f"rows dead — compaction deferred; call "
+                          f"maintain() in a maintenance window",
+                          file=sys.stderr)
+            else:
+                self.compact()
+        return removed
+
+    def warm(self, k: int = 10,
+             filters: Sequence[Filter] = ()) -> float:
+        """Pre-pay the first query's costs now: build the auto serving
+        tier's device state (the capacity view or the mirrors) and the
+        device masks of ``filters``, so the first client query is steady
+        state. Returns wall seconds; a no-op on an empty collection."""
+        t0 = time.perf_counter()
+        if len(self):
+            q = np.asarray(self._vectors[:1], np.float32)  # a real row
+            k_eff = min(k, len(self))
+            # exact=False follows the auto route; the f32 mirror of
+            # exact=True is warmed too where it fits.
+            exact_fits = not (self.distance == "cosine"
+                              and self.dim % 2 == 0
+                              and self._nrows * self.dim * 5
+                              > self.CAPACITY_AUTO_BYTES)
+            for exact in ((False, True) if exact_fits else (False,)):
+                self.search(q, k=k_eff, exact=exact)
+                for flt in filters:
+                    self.search(q, k=k_eff, flt=flt, exact=exact)
+        return time.perf_counter() - t0
 
     def maintain(self, force: bool = False) -> int:
-        raise _not_ported("Gallery.maintain", "A.2")
+        """Run deferred maintenance (physical compaction) now: deletes past
+        the dead-row threshold on large galleries, or with a live capacity
+        view, defer compaction to here. ``force=True`` compacts even below
+        the threshold. Returns rows reclaimed."""
+        if force or self._compact_due:
+            return self.compact()
+        return 0
+
+    def compact(self) -> int:
+        """Physically reclaim tombstoned rows (invalidates the device
+        mirrors — rows renumber). Returns rows reclaimed; a no-op when
+        nothing is dead."""
+        self._compact_due = False
+        if self._n_dead == 0:
+            return 0
+        n = self._nrows
+        keep = self._alive[:n].copy()
+        n_new = int(keep.sum())
+        self._vectors[:n_new] = self._vectors[:n][keep]
+        self._payloads.compact(keep)
+        new_ids: list[str] = []
+        new_map: dict[str, int] = {}
+        for i, pid in enumerate(self._ids):
+            if keep[i]:
+                new_map[pid] = len(new_ids)
+                new_ids.append(pid)
+        self._ids = new_ids
+        self._id_to_row = new_map
+        self._alive[:n] = True
+        reclaimed = self._n_dead
+        self._n_dead = 0
+        self._wseq += 1
+        # Row numbering no longer matches the base snapshot: later delta
+        # saves fall back to id-keyed ops.
+        self._snap_rows_valid = False
+        self._snap_dead_rows.clear()
+        self._invalidate_mirrors()  # compaction reshuffles rows
+        return reclaimed
 
     def attach_mesh(self, mesh) -> None:
         raise _not_ported("the sharded tier (attach_mesh)", "A.6")
 
     # ------------------------------------------------------------ reads
     def _records(self, rows: np.ndarray, with_vectors: bool) -> list[Record]:
+        if len(rows) > 65536:
+            _ = self._ids                   # bulk: one decode pass,
+            self._payloads._ensure_paths()  # one split — beats per-row
         return [
             Record(
-                id=self._ids[int(r)],
+                id=self._id_at(int(r)),
                 payload=self._payloads.get_row(int(r)),
                 vector=self._vectors[r].copy() if with_vectors else None,
             )
@@ -247,10 +622,11 @@ class Gallery:
 
     def retrieve(self, ids: Sequence[str], with_vectors: bool = True
                  ) -> list[Record]:
-        """Records of the given ids, in order; unknown ids are skipped."""
+        """Records of the given ids, in order; unknown or deleted ids are
+        skipped."""
         out = []
         for pid in ids:
-            row = self._id_to_row.get(pid)
+            row = self._row_of(pid)  # lazy-probe friendly (restart path)
             if row is None:
                 continue
             out.append(Record(
@@ -275,7 +651,7 @@ class Gallery:
         if row is None:
             return None
         return Record(
-            id=self._ids[row],
+            id=self._id_at(row),
             payload=self._payloads.get_row(row),
             vector=self._vectors[row].copy() if with_vectors else None,
         )
@@ -290,14 +666,19 @@ class Gallery:
 
     def _resolved_remove(self, r: int, key: str) -> None:
         """Detach row ``r`` from ``key``; if it was the index winner,
-        promote the next duplicate so a shared resolved path stays
-        findable after its first row is overwritten."""
+        promote the next LIVE duplicate so a shared resolved path stays
+        findable after its first row is deleted or overwritten."""
         idx, dups = self._resolved_paths, self._resolved_dups
+        if idx is None:
+            return
         if idx.get(key) == r:
             del idx[key]
             lst = dups.get(key)
-            if lst:
-                idx[key] = lst.pop(0)
+            while lst:
+                cand = lst.pop(0)
+                if self._alive[cand]:
+                    idx[key] = cand
+                    break
             if lst is not None and not lst:
                 dups.pop(key, None)
         else:
@@ -314,6 +695,8 @@ class Gallery:
             old = back.pop(r, None)
             if old is not None:
                 self._resolved_remove(r, old)
+            if not self._alive[r]:
+                continue
             p = self._payloads.path_of(r)
             if not p:
                 continue
@@ -333,7 +716,14 @@ class Gallery:
         self._resolved_dirty.update(
             int(r) for r in rows if r < self._resolved_hi)
         if len(self._resolved_dirty) > 65536:
-            self._resolved_paths = None
+            self._reset_resolved()
+
+    def _reset_resolved(self) -> None:
+        self._resolved_paths = None
+        self._resolved_back = {}
+        self._resolved_dups = {}
+        self._resolved_dirty = set()
+        self._resolved_hi = 0
 
     def _resolved_row(self, img_path: str) -> int | None:
         """Resolved-path fallback index (lazy; patched incrementally),
@@ -342,11 +732,8 @@ class Gallery:
         with self._view_mut:
             n = self._nrows
             if self._resolved_paths is None:
+                self._reset_resolved()
                 self._resolved_paths = {}
-                self._resolved_back = {}
-                self._resolved_dups = {}
-                self._resolved_dirty = set()
-                self._resolved_hi = 0
             if self._resolved_dirty:
                 self._index_resolved_rows(sorted(self._resolved_dirty))
                 self._resolved_dirty.clear()
@@ -370,7 +757,7 @@ class Gallery:
             raise ValueError(f"limit must be >= 1, got {limit}")
         if offset < 0:
             raise ValueError(f"offset must be >= 0, got {offset}")
-        rows = np.nonzero(self._payloads.mask(flt))[0]
+        rows = np.nonzero(self._mask_live(flt))[0]
         records = self._records(rows[offset: offset + limit], with_vectors)
         next_offset = offset + limit if offset + limit < len(rows) else None
         return records, next_offset
@@ -382,7 +769,7 @@ class Gallery:
     ) -> list[Record]:
         """ALL records matching a filter, in insertion order (one mask
         evaluation, no page-size ceiling)."""
-        rows = np.nonzero(self._payloads.mask(flt))[0]
+        rows = np.nonzero(self._mask_live(flt))[0]
         return self._records(rows, with_vectors)
 
     def distinct(self, fieldname: str, flt: Filter | None = None
@@ -392,7 +779,7 @@ class Gallery:
         cols = self._payloads
         if fieldname not in cols._CODED:
             raise KeyError(f"not a coded field: {fieldname}")
-        mask = cols.mask(flt)
+        mask = self._mask_live(flt)
         codes = np.unique(cols._cols[fieldname][: self._nrows][mask])
         decode = cols._decode[fieldname]
         vals = [decode[c] for c in codes if c >= 0]
@@ -403,12 +790,27 @@ class Gallery:
 
     def vectors_matching(self, flt: Filter | None = None) -> np.ndarray:
         """All vectors matching a filter as one [M, D] float32 array."""
-        mask = self._payloads.mask(flt)
+        mask = self._mask_live(flt)
         return self._vectors[: self._nrows][mask].copy()
 
     # ------------------------------------------------------------ mirrors
+    def _invalidate_mirrors(self) -> None:
+        # Compaction renumbers rows: the resolved-path index, the mirrors
+        # and the capacity view cannot be patched across it.
+        self._reset_resolved()
+        self._padded = 0
+        self._dev_f32 = self._dev_bf16 = self._dev_int8 = None
+        self._dev_int4 = None
+        self._synced = 0
+        self._dirty_lo = self._dirty_hi = 0
+        self._mask_cache.clear()
+        self._cap_view = None
+        self._cap_pending.clear()
+        self._cap_mask_cache.clear()
+
     def _mark_dirty(self, lo: int, hi: int) -> None:
-        """Record a host-row write; mirrors patch the range at next sync."""
+        """Record a host-row write; mirrors patch the range at next sync
+        (the resolved-path index is patched by _patch_resolved)."""
         self._mask_cache.clear()
         if self._dirty_hi > self._dirty_lo:
             self._dirty_lo = min(self._dirty_lo, lo)
@@ -418,14 +820,18 @@ class Gallery:
 
     def _normalized_rows(self, lo: int, hi: int, out_rows: int
                          ) -> torch.Tensor:
-        """Host rows [lo, hi), L2-normalised, zero-padded to ``out_rows``,
-        on the device. Always a fresh host buffer: ``torch.from_numpy``
-        would alias ``_vectors``, which later writes mutate."""
+        """Host rows [lo, hi) zero-padded to ``out_rows`` rows, on the
+        device: L2-normalised for cosine galleries, raw for the other
+        metrics (normalising would change dot/euclid/manhattan). Always a
+        fresh host buffer: ``torch.from_numpy`` would alias ``_vectors``,
+        which later writes mutate."""
         buf = np.zeros((out_rows, self.dim), dtype=np.float32)
         if hi > lo:
             rows = self._vectors[lo:hi]
-            norms = np.linalg.norm(rows, axis=1, keepdims=True)
-            buf[: hi - lo] = rows / np.maximum(norms, 1e-12)
+            if self.distance == "cosine":
+                norms = np.linalg.norm(rows, axis=1, keepdims=True)
+                rows = rows / np.maximum(norms, 1e-12)
+            buf[: hi - lo] = rows
         return torch.from_numpy(buf).to(self.device)
 
     def _sync_mirrors(self, f32: bool = False, bf16: bool = False,
@@ -494,8 +900,9 @@ class Gallery:
             start += chunk
 
     def _device_mask(self, flt: Filter | None) -> torch.Tensor:
-        """Device-resident row mask (valid AND filter), cached per filter
-        so a repeated filter costs no host mask build or upload."""
+        """Device-resident row mask (live AND filter), cached per filter
+        so a repeated filter costs no host mask build or upload. Deletes
+        clear the cache; the mirrors stay as they are."""
         key = None if flt is None else flt.cache_key()
         cached = self._mask_cache.get(key)
         if cached is not None:
@@ -505,18 +912,129 @@ class Gallery:
             if cached is not None:
                 return cached
             buf = np.zeros(self._padded, dtype=bool)
-            buf[: self._nrows] = self._payloads.mask(flt)
+            buf[: self._nrows] = self._mask_live(flt)  # tombstones out
             mask = torch.from_numpy(buf).to(self.device)
             if len(self._mask_cache) >= 128:
                 self._mask_cache.clear()
             self._mask_cache[key] = mask
             return mask
 
+    # ------------------------------------------------------ capacity tier
+    def _ensure_capacity_view(self):
+        """Build (or incrementally sync) the writable capacity view from
+        the pending-op log — small writes patch tiles, never rebuild.
+        Serialised under ``_view_mut``: two concurrent first searches must
+        not both replay (and clear) the same pending ops."""
+        from retrieval_based_object_detection_tpu_torch.gallery.capacity import (
+            CapacitySearcher,
+        )
+
+        with self._view_mut:
+            return self._ensure_capacity_view_locked(CapacitySearcher)
+
+    def _ensure_capacity_view_locked(self, CapacitySearcher):
+        n = self._nrows
+        if self._cap_view is None:
+            view = self._planes_sidecar_view(CapacitySearcher)
+            self._cap_view = view if view is not None else CapacitySearcher(
+                self._vectors[:n], self._alive[:n].copy(),
+                headroom=max(4096, n // 8), device=self.device)
+            self._cap_pending.clear()
+            self._cap_mask_cache.clear()
+            return self._cap_view
+        view = self._cap_view
+        try:
+            _replay_view_ops(view, self._cap_pending, self._vectors)
+        except ValueError:
+            # Outgrew the build-time headroom: one rebuild, then the
+            # incremental path resumes.
+            self._cap_view = None
+            return self._ensure_capacity_view()
+        self._cap_pending.clear()
+        return view
+
+    def _planes_sidecar_view(self, CapacitySearcher):
+        """Restore the capacity view from a ``<name>.rbod.planes`` sidecar
+        (gallery/planes.py) when one is recorded AND its snapshot identity
+        matches this gallery's live state exactly (same base id, same
+        delta seq, no unsaved churn, unrenumbered rows). Returns None (→
+        the chunked device build) on any mismatch or read error."""
+        if self._planes_path is None:
+            return None
+        from retrieval_based_object_detection_tpu_torch.gallery import planes
+
+        try:
+            hdr = planes.read_header(self._planes_path)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"[gallery] WARNING: unreadable planes sidecar "
+                  f"{self._planes_path}: {e} — rebuilding",
+                  file=sys.stderr)
+            self._planes_path = None
+            return None
+        if not (self._snap_id is not None
+                and hdr.get("base_id") == self._snap_id
+                and hdr.get("seq") == self._snap_seq
+                and hdr.get("n") == self._nrows
+                and hdr.get("dim") == self.dim
+                and self._snap_rows_valid
+                and not self._snap_dirty and not self._snap_deleted
+                and not self._snap_dead_rows):
+            return None  # stale: the state moved past the sidecar
+        try:
+            _, bf16, packed, scales = planes.open_sections(
+                self._planes_path)
+            n = self._nrows
+            return CapacitySearcher.from_host_planes(
+                bf16, packed, scales, self._alive[:n].copy(), n,
+                headroom=max(4096, n // 8), device=self.device)
+        except (OSError, ValueError, KeyError) as e:
+            # Torn/truncated sidecar or shape drift: the chunked build.
+            print(f"[gallery] WARNING: planes sidecar restore failed "
+                  f"({e}) — rebuilding from host rows",
+                  file=sys.stderr)
+            return None
+
+    def _cap_filter_mask(self, flt: Filter | None):
+        """Per-filter device mask at the capacity view's padding (cached:
+        re-uploading N bools per query would dominate at 10M rows).
+        Validity and tombstones live in the view's own mask; this carries
+        the payload filter only."""
+        if flt is None:
+            return None
+        view = self._cap_view
+        key = flt.cache_key()
+        cached = self._cap_mask_cache.get(key)
+        if cached is not None and cached.shape[0] == view._padded:
+            return cached
+        with self._view_mut:
+            cached = self._cap_mask_cache.get(key)
+            if cached is not None and cached.shape[0] == view._padded:
+                return cached
+            buf = np.zeros(view._padded, dtype=bool)
+            m = self._payloads.mask(flt)
+            buf[: len(m)] = m
+            mask = torch.from_numpy(buf).to(self.device)
+            if len(self._cap_mask_cache) >= 64:
+                self._cap_mask_cache.clear()
+            self._cap_mask_cache[key] = mask
+            return mask
+
+    def _capacity_search(self, queries: np.ndarray, k: int,
+                         flt: Filter | None,
+                         with_vectors: bool) -> list[list[Record]]:
+        view = self._ensure_capacity_view()
+        k_eff = min(k, len(self))
+        scores, idx = view.search(queries, k=k_eff,
+                                  extra_mask=self._cap_filter_mask(flt))
+        return self._rows_to_records(scores, idx, k_eff, with_vectors)
+
+    # ------------------------------------------------------------ search
     def _rows_to_records(self, scores: np.ndarray, idx: np.ndarray,
                          k_eff: int, with_vectors: bool
                          ) -> list[list[Record]]:
         """Per-query Record hit lists from top-k scores/rows; a NEG_INF
-        score ends a query's hits (fewer matches than k)."""
+        score ends a query's hits (fewer matches than k). Shared by the
+        mirror and capacity tiers."""
         results: list[list[Record]] = []
         for qi in range(scores.shape[0]):
             hits = []
@@ -525,7 +1043,7 @@ class Gallery:
                     break
                 row = int(idx[qi, j])
                 hits.append(Record(
-                    id=self._ids[row],
+                    id=self._id_at(row),
                     payload=self._payloads.get_row(row),
                     vector=self._vectors[row].copy()
                     if with_vectors else None,
@@ -543,41 +1061,60 @@ class Gallery:
         with_vectors: bool = False,
         method: str | None = None,
     ) -> list[list[Record]]:
-        """Batched cosine top-k. ``queries`` is [Q, D] or [D].
+        """Batched top-k under the collection's metric. ``queries`` is
+        [Q, D] or [D].
 
         ``method``: "exact" (f32), "bf16" (bf16 scan, f32 scores), "int8"
         (int8 scan + exact f32 rescore of the top candidates), "int4"
         (half the int8 scan's bytes: per-row 4-bit packing, scale-
         compensated in the scan, the same f32 rescore — exact hit scores,
-        a top-k SET approximate at the margin; even dims only), or None —
-        exact when ``exact=True``; else auto: int8 on CUDA at
-        ≥INT8_SCAN_MIN_ROWS rows, bf16 below. Auto never picks "capacity"
-        while that tier is not ported (CAPACITY_AUTO_BYTES is kept for it);
-        "capacity" and "sharded[_<tier>]" asked for by name raise.
+        a top-k SET approximate at the margin; even dims only), "capacity"
+        (the bf16-rescore + int4-plane tier at ~2.5 bytes/dim residency,
+        writable and kept in sync incrementally), or None — exact when
+        ``exact=True``; else auto: bf16 for the non-cosine metrics,
+        capacity once the standard mirrors exceed CAPACITY_AUTO_BYTES,
+        int8 on CUDA at ≥INT8_SCAN_MIN_ROWS rows, bf16 below. The
+        quantised tiers serve cosine collections only. "sharded[_<tier>]"
+        raises: that tier is not ported.
         """
         n = self._nrows
         if method is None:
             if exact:
                 method = "exact"
+            elif self.distance != "cosine":
+                method = "bf16"  # int8 quantisation assumes unit rows
+            elif (self.dim % 2 == 0
+                  and n * self.dim * 5 > self.CAPACITY_AUTO_BYTES):
+                # The standard mirrors (~5 bytes/dim) stop fitting the
+                # card: serve through the bf16 + int4 capacity tier.
+                method = "capacity"
             else:
                 method = ("int8" if n >= self.INT8_SCAN_MIN_ROWS
                           and self.device.type == "cuda" else "bf16")
-        if method == "capacity":
-            raise _not_ported(f"method={method!r}", "A.4")
         if method == "sharded" or method.startswith("sharded_"):
             raise _not_ported(f"method={method!r}", "A.6")
-        if method not in ("exact", "bf16", "int8", "int4"):
+        if method not in ("exact", "bf16", "int8", "int4", "capacity"):
             raise ValueError(
                 f"unknown method {method!r}: expected one of "
-                "'exact', 'bf16', 'int8', 'int4' (or None for auto)")
-        if method == "int4" and self.dim % 2:
+                "'exact', 'bf16', 'int8', 'int4', 'capacity' "
+                "(or None for auto)")
+        if method in ("int8", "int4", "capacity") \
+                and self.distance != "cosine":
+            raise ValueError(
+                f"method={method!r} requires a cosine collection (the "
+                "quantised tiers assume unit-norm rows)")
+        if method in ("int4", "capacity") and self.dim % 2:
             raise ValueError(f"method={method!r} requires an even dim "
                              "(two dims pack per byte)")
         queries = np.asarray(queries, dtype=np.float32)
         if queries.ndim == 1:
             queries = queries[None, :]
-        if len(self) == 0:
+        if len(self) == 0:  # no LIVE points (all-tombstoned included)
             return [[] for _ in range(queries.shape[0])]
+        if method == "capacity":
+            # Own device residency (bf16 + int4 planes, no f32 mirror);
+            # never touches _sync_mirrors.
+            return self._capacity_search(queries, k, flt, with_vectors)
         self._sync_mirrors(f32=(method in ("exact", "int8", "int4")),
                            bf16=(method == "bf16"), i8=(method == "int8"))
         mask = self._device_mask(flt)
@@ -601,13 +1138,43 @@ class Gallery:
             scores, idx = search_lib.int8_scan_topk(
                 q, self._dev_int8, self._dev_f32, mask, k=k_eff,
                 rescore=rescore)
-        else:
+        elif self.distance == "cosine":
             g = self._dev_f32 if method == "exact" else self._dev_bf16
             scores, idx = search_lib.masked_cosine_topk(
                 q, g, mask, k=k_eff, exact=(method == "exact"),
                 gallery_normalized=True)
+        else:
+            g = self._dev_f32 if method == "exact" else self._dev_bf16
+            scores, idx = search_lib.masked_metric_topk(
+                q, g, mask, k=k_eff, distance=self.distance,
+                exact=(method == "exact"))
         return self._rows_to_records(scores.cpu().numpy(),
                                      idx.cpu().numpy(), k_eff, with_vectors)
+
+    # ------------------------------------------------------------ export
+    def to_arrays(self) -> dict[str, Any]:
+        self.compact()  # exports are dense live-row views
+        n = self._nrows
+        return {
+            "ids": list(self._ids),
+            "vectors": self._vectors[:n].copy(),
+            "payloads": [self._payloads.get_row(i).to_dict()
+                         for i in range(n)],
+            "dim": self.dim,
+            "distance": self.distance,
+        }
+
+    @staticmethod
+    def from_arrays(name: str, data: dict[str, Any],
+                    device: str | torch.device = "cuda") -> "Gallery":
+        dim = int(data["dim"])
+        g = Gallery(name, dim=dim,
+                    capacity=max(1024, len(data["ids"])),
+                    distance=data.get("distance", "cosine"), device=device)
+        payloads = [Payload.from_dict(p) for p in data["payloads"]]
+        if data["ids"]:
+            g.upsert(data["ids"], data["vectors"], payloads)
+        return g
 
 
 class VectorStore:
@@ -617,6 +1184,10 @@ class VectorStore:
     def __init__(self, device: str | torch.device = "cuda") -> None:
         self.device = resolve_device(device)
         self._collections: dict[str, Gallery] = {}
+        # Names whose snapshots go at the next save — only explicit
+        # deletes/renames, never load failures (a collection skipped on
+        # load must survive unrelated saves).
+        self._tombstones: set[str] = set()
 
     def list_collections(self) -> list[tuple[str, int]]:
         """[(name, point_count)] — mirrors qdrant_manager.py:41-50."""
@@ -631,6 +1202,7 @@ class VectorStore:
             raise KeyError(f"collection exists: {name}")
         g = Gallery(name, dim=dim, distance=distance, device=self.device)
         self._collections[name] = g
+        self._tombstones.discard(name)
         return g
 
     def get(self, name: str) -> Gallery:
@@ -646,11 +1218,15 @@ class VectorStore:
         g = self._collections.pop(old)
         g.name = new
         self._collections[new] = g
+        self._tombstones.add(old)
+        self._tombstones.discard(new)
 
     def delete_collection(self, name: str) -> None:
         del self._collections[name]
+        self._tombstones.add(name)
 
     def delete_all_collections(self) -> int:
         n = len(self._collections)
+        self._tombstones.update(self._collections)
         self._collections.clear()
         return n

@@ -1,4 +1,5 @@
-"""CLIP image preprocessing on the host: the PIL path and batch padding.
+"""CLIP image preprocessing: the host PIL path, the device batch path, and
+batch padding.
 
 The reference preprocesses with the torchvision Compose returned by
 ``clip.load`` — Resize(224, bicubic) → CenterCrop(224) → ToTensor →
@@ -6,13 +7,18 @@ Normalize — one image at a time on the host
 (31_clip_embedding_and_save_vector.py:32-33). ``preprocess_pil`` is that
 pipeline through PIL, byte for byte the JAX package's. RGBA inputs
 (segmented PNGs) are reduced with ``convert("RGB")`` as the reference does:
-alpha is dropped, not composited. The batched device resize of the JAX
-package (``preprocess_batch``) is not ported yet.
+alpha is dropped, not composited. ``preprocess_batch`` is the JAX
+package's batched device path: bicubic resize with antialias
+(``jax.image.resize``, written out by ``ops.image.resize_bicubic``), center
+crop, normalise — close to PIL's resampler, not bit-identical to it.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from retrieval_based_object_detection_tpu_torch.ops.image import resize_bicubic
 
 try:  # PIL is required for the host path only.
     from PIL import Image
@@ -51,6 +57,26 @@ def load_and_preprocess(path, size: int = 224) -> np.ndarray | None:
             return preprocess_pil(img, size)
     except Exception:
         return None
+
+
+def preprocess_batch(images: torch.Tensor, size: int = 224) -> torch.Tensor:
+    """Device path: uint8/float [B, H, W, 3] (0..255) → normalised
+    [B, size, size, 3] f32 on the images' device. Resizes the shorter side
+    to ``size`` (bicubic, antialiased), then center-crops."""
+    images = images.to(torch.float32) / 255.0
+    B, H, W, C = images.shape
+    if H < W:
+        new_h, new_w = size, max(size, int(size * W / H))
+    else:
+        new_h, new_w = max(size, int(size * H / W)), size
+    resized = resize_bicubic(images, new_h, new_w)
+    top = int(round((new_h - size) / 2.0))
+    left = int(round((new_w - size) / 2.0))
+    crop = torch.clamp(resized[:, top: top + size, left: left + size], 0.0,
+                       1.0)
+    mean = torch.from_numpy(CLIP_MEAN).to(crop.device)
+    std = torch.from_numpy(CLIP_STD).to(crop.device)
+    return (crop - mean) / std
 
 
 def pad_batch(arrs: list[np.ndarray], batch_size: int

@@ -459,6 +459,128 @@ def test_int4_scan_kernel_rejects_what_it_does_not_take(cuda_device):
                             z(8, dtype=torch.float32))
 
 
+def test_int4_scan_kernel_past_2gib_of_packed_rows(cuda_device):
+    """8,421,376 x 512: 2.16 GB of packed rows, past 2^31 bytes (the
+    capacity tier's 10.5M rows are 2.7 GB). Bit for bit against the plain
+    version on slices at the start, across the 2^31-byte line and at the
+    end (the plain version of the whole would need 43 GB of float64)."""
+    Q, N, D = 16, 8_421_376, 512
+    g = torch.Generator(device=cuda_device).manual_seed(N)
+    q = torch.randint(-127, 128, (Q, D), generator=g, dtype=torch.int8,
+                      device=cuda_device)
+    packed = torch.randint(-128, 128, (N, D // 2), generator=g,
+                           dtype=torch.int8, device=cuda_device)
+    scales = torch.rand(N, generator=g, device=cuda_device) * 0.2 + 1e-3
+    pen = torch.where(torch.rand(N, generator=g, device=cuda_device) < 0.1,
+                      -1e30, 0.0)
+    got = S4.int4_scan_scores(q, packed, scales, pen)
+    torch.cuda.synchronize()
+    line = (1 << 31) // (D // 2)  # first row past 2^31 bytes
+    for lo in (0, line - 32_768, N - 65_536):
+        hi = lo + 65_536
+        want = S4.int4_scan_scores_plain(q, packed[lo:hi], scales[lo:hi],
+                                         pen[lo:hi])
+        torch.testing.assert_close(got[:, lo:hi], want, atol=0, rtol=0)
+
+
+def _unit_rows(n, d, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(n, d, generator=g).numpy()
+
+
+def test_capacity_search_matches_its_plain_twin(cuda_device):
+    """The capacity view on the card at 65,536 rows: its search launches
+    B3 once and returns what the plain unpack-and-matmul twin returns over
+    the same planes and masks."""
+    from retrieval_based_object_detection_tpu_torch.gallery import (
+        capacity, search,
+    )
+
+    n, d = 65_536, 512
+    rows = _unit_rows(n, d, 1)
+    live = torch.rand(n, generator=torch.Generator().manual_seed(2)).numpy()
+    view = capacity.CapacitySearcher(rows, live > 0.05, headroom=4096,
+                                     device=cuda_device)
+    view.set_rows_invalid(range(0, n, 97))
+    q = rows[:16] + 0.3 * _unit_rows(16, d, 3)
+    before = S4.KERNEL.launches
+    scores, idx = view.search(q, k=10)
+    assert S4.KERNEL.launches == before + 1
+    ts, ti = search.int4_cosine_topk(
+        torch.from_numpy(q).to(cuda_device), view.dev_packed,
+        view.dev_scales, view.dev_bf16, view.dev_mask, k=10, rescore=256)
+    torch.testing.assert_close(torch.from_numpy(scores), ts.cpu(),
+                               atol=1e-6, rtol=0)
+    for a, b in zip(idx, ti.cpu().numpy()):
+        assert set(a) == set(b)
+    assert view._host_mask[idx].all()
+
+
+def test_delete_reaches_each_scan_tier(cuda_device):
+    """A delete by id and by filter on a CUDA gallery: every tier (exact,
+    bf16, int8 through B2, int4 through B3, capacity through B3) drops the
+    deleted rows at once, the mirrors are not rebuilt, and int8 keeps
+    exact's top-10 set."""
+    from retrieval_based_object_detection_tpu_torch.gallery import (
+        schema, store,
+    )
+
+    n, d = 20_000, 512
+    rows = _unit_rows(n, d, 4)
+    g = store.Gallery("tomb", dim=d, device=cuda_device)
+    g.upsert([f"p{i}" for i in range(n)], rows,
+             [schema.Payload(data_type="original_images",
+                             class_name=f"c{i % 50}") for i in range(n)])
+    q = rows[:16] + 0.2 * _unit_rows(16, d, 5)
+    tiers = ("exact", "bf16", "int8", "int4", "capacity")
+    for t in tiers:
+        g.search(q, k=10, method=t)
+    mirrors = (g._dev_f32, g._dev_int8, g._dev_int4[0], g._cap_view)
+    gone = {f"p{i}" for i in range(16)}
+    assert g.delete(ids=sorted(gone)) == 16
+    # c7 is every 50th row from p7, which the delete by id took already.
+    assert g.delete(flt=schema.Filter(must={"class_name": "c7"})) == 399
+    gone |= {f"p{i}" for i in range(7, n, 50)}
+    b2, b3 = S.KERNEL.launches, S4.KERNEL.launches
+    hits = {t: g.search(q, k=10, method=t) for t in tiers}
+    assert S.KERNEL.launches == b2 + 1 and S4.KERNEL.launches == b3 + 2
+    after = (g._dev_f32, g._dev_int8, g._dev_int4[0], g._cap_view)
+    assert all(a is b for a, b in zip(after, mirrors))
+    for t, res in hits.items():
+        assert not gone & {h.id for r in res for h in r}, t
+    for e, i8 in zip(hits["exact"], hits["int8"]):
+        assert {h.id for h in e} == {h.id for h in i8}
+
+
+@pytest.mark.parametrize("distance", ["dot", "euclid", "manhattan"])
+def test_metric_topk_exact_on_the_card_vs_float64(cuda_device, distance):
+    """``masked_metric_topk(exact=True)`` on CUDA multiplies in f32 with
+    TF32 off (PyTorch's default, the rule of the exact cosine tier): its
+    top-10 scores, and the float64 scores of the rows it returns, match a
+    float64 reference to 1e-5 relative. One TF32 product would be ~1e-3."""
+    from retrieval_based_object_detection_tpu_torch.gallery import search
+
+    n, d, k = 50_000, 512, 10
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    rows = (torch.randn(n, d, generator=g, device=cuda_device)
+            * (torch.rand(n, 1, generator=g, device=cuda_device) * 2.8 + 0.2))
+    q = torch.randn(16, d, generator=g, device=cuda_device)
+    mask = torch.rand(n, generator=g, device=cuda_device) > 0.2
+    scores, idx = search.masked_metric_topk(q, rows, mask, k, distance)
+    q64, r64 = q.double(), rows.double()
+    if distance == "dot":
+        ref = q64 @ r64.T
+    elif distance == "euclid":
+        ref = -torch.cdist(q64, r64)
+    else:
+        ref = -torch.cdist(q64, r64, p=1)
+    ref = torch.where(mask[None], ref, -1e300)
+    want, _ = torch.topk(ref, k, dim=1)
+    torch.testing.assert_close(scores.double(), want, rtol=1e-5, atol=0)
+    torch.testing.assert_close(torch.gather(ref, 1, idx), want, rtol=1e-5,
+                               atol=0)
+
+
 # Sums of up to N distances: the JAX package's medoid tolerance
 # (tests/test_pallas_medoid.py), for the Gram trick summed in another order.
 @pytest.mark.parametrize("N,D", [(12_000, 512), (1, 512), (65, 512),

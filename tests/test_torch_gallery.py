@@ -143,28 +143,32 @@ def test_auto_routing_on_cpu_serves_bf16_not_int8(monkeypatch):
 
 
 def test_unported_paths_raise_naming_the_roadmap():
+    """Only the sharded tier (ROADMAP A.6) is still unported; the capacity
+    tier, deletes and the non-cosine metrics are served."""
     g = TGallery("u", dim=8, device="cpu")
-    g.upsert(["a"], np.ones((1, 8), np.float32),
-             [tschema.Payload(data_type="original_images", class_name="x")])
-    for method in ("capacity", "sharded", "sharded_int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    g.upsert(["a", "b"], np.eye(2, 8, dtype=np.float32),
+             [tschema.Payload(data_type="original_images", class_name="x")]
+             * 2)
+    for method in ("sharded", "sharded_int8"):
+        with pytest.raises(NotImplementedError, match="A.6"):
             g.search(np.ones(8, np.float32), method=method)
+    with pytest.raises(NotImplementedError, match="A.6"):
+        g.attach_mesh(None)
     with pytest.raises(ValueError, match="unknown method"):
         g.search(np.ones(8, np.float32), method="int16")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        g.search(np.ones(8, np.float32), method="capacity")
-    # Asked for by name it raises at any size, also past the auto budget.
-    old = TGallery.CAPACITY_AUTO_BYTES
-    TGallery.CAPACITY_AUTO_BYTES = 1
-    try:
-        with pytest.raises(NotImplementedError, match="A.4"):
-            g.search(np.ones(8, np.float32), method="capacity")
-    finally:
-        TGallery.CAPACITY_AUTO_BYTES = old
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        g.delete(["a"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TGallery("e", dim=8, distance="euclid", device="cpu")
+    # Asked for by name the capacity tier serves, at any size.
+    hit = g.search(np.eye(1, 8, dtype=np.float32), k=1, method="capacity")
+    assert hit[0][0].id == "a" and g._cap_view is not None
+    assert g.delete(["a"]) == 1 and len(g) == 1
+    assert g.search(np.eye(1, 8, dtype=np.float32), k=2,
+                    method="capacity")[0][0].id == "b"
+    e = TGallery("e", dim=8, distance="euclid", device="cpu")
+    e.upsert(["p", "q"], np.stack([np.zeros(8), np.full(8, 3.0)]).astype(
+        np.float32), [tschema.Payload(data_type="o", class_name="x")] * 2)
+    hits = e.search(np.ones(8, np.float32), k=2)[0]
+    assert [h.id for h in hits] == ["p", "q"]
+    np.testing.assert_allclose([h.score for h in hits],
+                               [-np.sqrt(8), -np.sqrt(32)], rtol=1e-6)
     with pytest.raises(ValueError, match="limit"):
         g.scroll(limit=0)
 
@@ -172,22 +176,29 @@ def test_unported_paths_raise_naming_the_roadmap():
 @pytest.mark.parametrize("min_rows", [10 ** 9, 1])
 def test_auto_search_never_picks_the_unported_capacity_tier(monkeypatch,
                                                             min_rows):
-    """Past CAPACITY_AUTO_BYTES of standard mirrors the JAX store routes an
-    inexact search to its capacity tier. The port has no such tier yet, so
-    its auto route must stay on a tier it has (bf16 here: int8 is the CUDA
-    route) and answer, not raise; the constant is sized for an 80 GB card."""
+    """Past CAPACITY_AUTO_BYTES of standard mirrors an inexact search
+    auto-routes to the capacity tier, as in the JAX store, and below it to
+    a mirror tier (bf16 here: int8 is the CUDA route), whatever
+    INT8_SCAN_MIN_ROWS says; the constant is sized for an 80 GB card.
+    The name is kept from before the capacity tier was ported, when auto
+    search had to avoid it; what it checks now is the routing above."""
     assert TGallery.CAPACITY_AUTO_BYTES >= 32 << 30
-    monkeypatch.setattr(TGallery, "CAPACITY_AUTO_BYTES", 64)
     monkeypatch.setattr(TGallery, "INT8_SCAN_MIN_ROWS", min_rows)
     rng = np.random.default_rng(4)
-    g = TGallery("big", dim=8, device="cpu")
     vecs = rng.normal(size=(40, 8)).astype(np.float32)
     pl = tschema.Payload(data_type="original_images", class_name="x")
-    g.upsert([f"p{i}" for i in range(40)], vecs, [pl] * 40)
-    assert 40 * 8 * 5 > TGallery.CAPACITY_AUTO_BYTES
-    hits = g.search(vecs[:3], k=1, exact=False)
-    assert [h[0].id for h in hits] == ["p0", "p1", "p2"]
-    assert g._dev_bf16 is not None
+    for budget, tier in ((40 * 8 * 5, "mirror"), (40 * 8 * 5 - 1,
+                                                  "capacity")):
+        monkeypatch.setattr(TGallery, "CAPACITY_AUTO_BYTES", budget)
+        g = TGallery("big", dim=8, device="cpu")
+        g.upsert([f"p{i}" for i in range(40)], vecs, [pl] * 40)
+        hits = g.search(vecs[:3], k=1, exact=False)
+        assert [h[0].id for h in hits] == ["p0", "p1", "p2"]
+        assert (g._cap_view is not None) == (tier == "capacity")
+        assert (g._dev_bf16 is not None) == (tier == "mirror")
+        # exact=True never leaves the f32 mirror.
+        g.search(vecs[:1], k=1)
+        assert g._dev_f32 is not None
 
 
 def test_vector_store_crud_and_device():

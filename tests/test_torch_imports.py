@@ -33,7 +33,8 @@ def test_every_port_module_imports_without_jax():
               "pipelines.experiments", "ops.attention", "utils.logging",
               "utils.checkpoint", "train.train", "train.loop",
               "models.sam.encoder", "models.sam.decoder", "models.sam.model",
-              "pipelines.segment"):
+              "pipelines.segment", "pipelines.analysis", "native",
+              "gallery.capacity", "gallery.persist", "gallery.planes"):
         assert p + m in mods
     code = (
         "import importlib, sys\n"
