@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port: its serving, offline, gallery,
-training and segment paths on one NVIDIA GPU.
+service, sharded, training and segment paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -8,7 +8,7 @@ Builds the port's CUDA kernels from ``csrc/`` (one nvcc per source, all
 started together), counts the tensor-core instructions of each
 tensor-core kernel (B1, B3, B4, B5, B6, B7), and holds each kernel against its
 plain PyTorch version at the shapes its path gives it. Then it drives
-five paths through the calls a user makes, at full width from seeded
+seven paths through the calls a user makes, at full width from seeded
 weights:
 
 - serving: a few hundred synthetic crops are embedded into a Gallery,
@@ -28,6 +28,19 @@ weights:
   planes made on the card (the int4 scan past 2^31 bytes of packed rows),
   with a filter and 1% of rows deleted, against an exact cosine over the
   same bf16 rows;
+- service: the compacted 1M-row gallery saved as a ``.rbod`` root and
+  served by ``gallery.server.serve(warm=True)``, with a copy behind the
+  Qdrant façade; ``GalleryClient`` searches through the exact, int8 (B2)
+  and int4 (B3) tiers equal to the in-process ones, a binary upsert and
+  deletes against an exact search over the live rows, retrieve / by-path /
+  scroll / count, 8 reader threads against a writer and the serial oracle,
+  ``/snapshot`` and a reload, the façade's raw REST calls and
+  ``migrate.import_qdrant``, and two shard servers behind ``serve_router``
+  equal to the single server;
+- sharded: ``attach_mesh`` of a 4-shard mesh listing cuda:0 four times
+  (B2 or B3 once per shard per search), each tier against the
+  single-device one, writes that patch the view, and
+  ``serve(mesh_devices=-1)``;
 - training: ``fit`` fine-tunes ViT-B/32 (bf16 compute, f32 weights) for 12
   steps of 64 on a colour-class tree with checkpoints, then resumes for 6
   more under the cosine schedule; one f32 step's gradients are held
@@ -1410,6 +1423,530 @@ def capacity_kernel_timing(torch, S4, search, view, q) -> dict:
     return out
 
 
+def serve_in_thread(server) -> str:
+    """Run an HTTP server on a daemon thread; its base URL."""
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def stop_servers(*servers) -> None:
+    for s in servers:
+        s.shutdown()
+        s.server_close()
+
+
+def http_json(method: str, url: str, body=None):
+    """One raw JSON request, as the reference's qdrant-client sends it; the
+    parsed reply."""
+    req = urllib.request.Request(
+        url, method=method, headers={"Content-Type": "application/json"},
+        data=None if body is None else json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def assert_same_hits(tag: str, got, want, tol: float = 1e-6) -> None:
+    """Equal top-k per query: the same ids, each score within ``tol`` (ids
+    compared as sets: neither side promises an order among tied scores)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} result lists, not "
+                             f"{len(want)}")
+    for qi, (g, w) in enumerate(zip(got, want)):
+        gs, ws = {h.id: h.score for h in g}, {h.id: h.score for h in w}
+        if len(g) != len(w) or gs.keys() != ws.keys() or any(
+                abs(gs[i] - ws[i]) > tol for i in gs):
+            raise AssertionError(f"{tag}: query {qi} hits differ: "
+                                 f"{sorted(gs.items())} vs "
+                                 f"{sorted(ws.items())}")
+
+
+def overlap(a, b, k: int) -> float:
+    """Mean top-k overlap of two lists of id sets."""
+    return sum(len(x & y) for x, y in zip(a, b)) / (k * len(a))
+
+
+def orthogonal_rows(np, rng, n: int, queries):
+    """``n`` random rows orthogonal to every query: their cosine with each
+    query is 0, so no top-k of these queries can take one in."""
+    basis, _ = np.linalg.qr(queries.T.astype(np.float64))
+    w = rng.standard_normal((n, queries.shape[1]))
+    return (w - (w @ basis) @ basis.T).astype(np.float32)
+
+
+SERVICE_TIERS = {"exact": {"exact": True}, "int8": {"exact": False},
+                 "int4": {"method": "int4"}}
+
+
+def service_path(torch, np, port, gallery, queries, root, seed: int):
+    """The gallery as a service over the compacted 1M-row gallery: a
+    ``.rbod`` root served with ``serve(warm=True)`` and a copy behind the
+    Qdrant façade; ``GalleryClient`` searches per tier against the
+    in-process search; binary upsert, deletes, retrieve / by-path / scroll /
+    count; 8 reader threads and a writer against the serial oracle;
+    ``/snapshot`` and a reload; the façade's raw REST calls and
+    ``migrate.import_qdrant``; two shard servers behind ``serve_router``.
+    Returns its numbers and the reloaded server's int8-tier hits."""
+    import shutil
+
+    server_lib, client_lib = port["server"], port["client"]
+    router_lib, migrate = port["router"], port["migrate"]
+    persist, store, schema = port["persist"], port["store"], port["schema"]
+    S, S4 = port["int8_scan"], port["int4_scan"]
+    Filter, Payload = schema.Filter, schema.Payload
+    name, D, k = gallery.name, gallery.dim, 10
+    rng = np.random.default_rng(seed + 50)
+    out = {"rows": len(gallery), "queries": len(queries), "k": k}
+
+    def launches():
+        return S.KERNEL.launches, S4.KERNEL.launches
+
+    def search_all(client):
+        return {t: client.search(queries, k=k, **kw)
+                for t, kw in SERVICE_TIERS.items()}
+
+    # A snapshot root served warm, and a copy behind the Qdrant façade.
+    t = time.perf_counter()
+    local = store.VectorStore(device="cuda")
+    local._collections[name] = gallery
+    persist.save_store(local, root / "native")
+    out["save_store_s"] = time.perf_counter() - t
+    shutil.copytree(root / "native", root / "facade")
+    b2 = S.KERNEL.launches
+    t = time.perf_counter()
+    srv = server_lib.serve(root / "native", host="127.0.0.1", port=0,
+                           warm=True, device="cuda")
+    url = serve_in_thread(srv)
+    qsrv = server_lib.serve(root / "facade", host="127.0.0.1", port=0,
+                            api="qdrant", device="cuda")
+    qurl = serve_in_thread(qsrv)
+    while http_json("GET", f"{url}/healthz")["warming"]:
+        if time.perf_counter() - t > 600:
+            raise AssertionError("the warm did not end in 600 s")
+        time.sleep(0.05)
+    out["load_and_warm_s"] = time.perf_counter() - t
+    served = srv.service.store.get(name)
+    # warm_async logs and skips a collection whose warm fails: check that
+    # this one's serving tier exists and that its search launched B2.
+    if served._dev_int8 is None or served._dev_f32 is None or \
+            S.KERNEL.launches == b2:
+        raise AssertionError("the warm built no int8 tier or launched no B2")
+    out["warm_b2_launches"] = S.KERNEL.launches - b2
+
+    # Each tier over REST equals the in-process search of the same tier.
+    client = client_lib.GalleryClient(url, name)
+    rest, out["rest_launches"] = {}, {}
+    for tier, kw in SERVICE_TIERS.items():
+        before = launches()
+        rest[tier] = client.search(queries, k=k, **kw)
+        out["rest_launches"][tier] = [a - b for a, b in
+                                      zip(launches(), before)]
+        assert_same_hits(f"REST {tier}", rest[tier],
+                         gallery.search(queries, k=k, **kw))
+    if out["rest_launches"] != {"exact": [0, 0], "int8": [1, 0],
+                                "int4": [0, 1]}:
+        raise AssertionError(f"REST launches {out['rest_launches']}")
+    out["rest_ms_client_clock"] = {t: host_ms(lambda kw=kw: client.search(
+        queries, k=k, **kw), 10) for t, kw in SERVICE_TIERS.items()}
+    out["in_process_ms_host_clock"] = {t: host_ms(lambda kw=kw: served.search(
+        queries, k=k, **kw), 10) for t, kw in SERVICE_TIERS.items()}
+    flt = Filter(must={"class_name": "c3"})
+    filtered = client.search(queries, k=k, flt=flt, exact=False)
+    assert_same_hits("REST filtered", filtered,
+                     gallery.search(queries, k=k, flt=flt, exact=False))
+    if any(h.payload.class_name != "c3" for r in filtered for h in r):
+        raise AssertionError("a filtered hit outside c3")
+    log("service_tiers", **out)
+
+    # Writes: 1,000 rows by the binary frame, 1,000 deleted by id (each
+    # query's top hit among them).
+    w = {}
+    new_ids = [f"svc-{i}" for i in range(1000)]
+    new_vecs = rng.standard_normal((1000, D), dtype=np.float32)
+    new_pls = [Payload(data_type="original_images", class_name=f"c{i % 8}",
+                       img_path=f"/svc/{i}.png") for i in range(1000)]
+    t = time.perf_counter()
+    if client.upsert(new_ids, new_vecs, new_pls) != 1000:
+        raise AssertionError("the binary upsert did not take 1,000 rows")
+    w["binary_upsert_1000_ms"] = (time.perf_counter() - t) * 1e3
+    top1 = list(dict.fromkeys(r[0].id for r in rest["exact"]))
+    others = [served._id_at(int(r)) for r in rng.choice(
+        gallery._nrows, 1200, replace=False)]
+    victims = (top1 + [i for i in others if i not in top1])[:1000]
+    t = time.perf_counter()
+    if client.delete(ids=victims) != 1000:
+        raise AssertionError("the delete did not take 1,000 ids")
+    w["delete_1000_ms"] = (time.perf_counter() - t) * 1e3
+    after = search_all(client)
+    want = live_exact_topk(torch, np, served, queries, k)
+    if any(set(victims) & ids for r in after.values() for ids in ids_of(r)):
+        raise AssertionError("a deleted id came back over REST")
+    for tier in ("exact", "int8"):
+        if ids_of(after[tier]) != want:
+            raise AssertionError(f"REST {tier} after the writes differs from "
+                                 "the exact search over the live rows")
+    w["int4_top10_overlap_with_live_exact"] = overlap(
+        ids_of(after["int4"]), want, k)
+    if w["int4_top10_overlap_with_live_exact"] < 0.9:
+        raise AssertionError(f"REST int4 overlap {w}")
+    if [r[0].id for r in client.search(new_vecs[:16], k=1)] != new_ids[:16]:
+        raise AssertionError("an upserted row is not its own top hit")
+
+    # retrieve, by-path, scroll, count.
+    got = client.retrieve(new_ids[:5], with_vectors=True)
+    if [r.id for r in got] != new_ids[:5] or not all(
+            np.array_equal(r.vector, v) for r, v in zip(got, new_vecs)):
+        raise AssertionError("retrieve did not return the upserted rows")
+    rec = client.get_by_path("/svc/7.png")
+    if rec is None or rec.id != "svc-7":
+        raise AssertionError(f"by-path returned {rec}")
+    page, nxt = client.scroll(flt=flt, limit=50)
+    if len(page) != 50 or nxt != 50 or any(r.payload.class_name != "c3"
+                                           for r in page):
+        raise AssertionError("a filtered scroll page is wrong")
+    w["count"] = client.count()
+    if w["count"] != len(served) or client.count(flt) != served.count(flt):
+        raise AssertionError("count differs from the served gallery's")
+    log("service_writes", **w)
+    out.update(w)
+
+    # The storm: 8 client threads x 16 searches while one writer upserts
+    # and deletes rows orthogonal to every query, so each answer must
+    # equal the serial oracle.
+    oracle = client.search(queries, k=k, exact=False)
+    stop, written, errors = threading.Event(), [0], []
+
+    def writer():
+        wc = client_lib.GalleryClient(url, name)
+        prev = None
+        try:
+            while not stop.is_set():
+                ids = [f"storm-{written[0]}-{i}" for i in range(64)]
+                wc.upsert(ids, orthogonal_rows(np, rng, 64, queries),
+                          [new_pls[0]] * 64)
+                if prev is not None:
+                    wc.delete(ids=prev)
+                prev = ids
+                written[0] += 1
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def reader(i):
+        rc = client_lib.GalleryClient(url, name)
+        lat = []
+        for _ in range(16):
+            t0 = time.perf_counter()
+            res = rc.search(queries, k=k, exact=False)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            assert_same_hits(f"storm reader {i}", res, oracle)
+        return lat
+
+    wt = threading.Thread(target=writer)
+    count0 = client.count()
+    t = time.perf_counter()
+    wt.start()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            lat = sorted(x for f in [ex.submit(reader, i) for i in range(8)]
+                         for x in f.result())
+    finally:
+        stop.set()
+        wt.join(timeout=120)
+    if wt.is_alive() or errors or written[0] < 1:
+        raise AssertionError(f"the writer: {errors or written[0]}")
+    storm = {"seconds": time.perf_counter() - t, "searches": len(lat),
+             "writer_batches": written[0],
+             "p50_ms_client_clock": lat[len(lat) // 2],
+             "p95_ms_client_clock": lat[int(len(lat) * 0.95)],
+             "max_ms_client_clock": lat[-1]}
+    if client.count() != count0 + 64:  # the writer's last batch stays
+        raise AssertionError("the storm's end state is wrong")
+    log("service_storm", **storm)
+    out["storm"] = storm
+
+    # /snapshot, a reload of the root, the same answers.
+    before = search_all(client)
+    t = time.perf_counter()
+    saved = client_lib.RemoteVectorStore(url).snapshot()
+    snap = {"snapshot_s": time.perf_counter() - t, "saved": saved}
+    stop_servers(srv)
+    del served, srv
+    t = time.perf_counter()
+    srv = server_lib.serve(root / "native", host="127.0.0.1", port=0,
+                           device="cuda")
+    url = serve_in_thread(srv)
+    client = client_lib.GalleryClient(url, name)
+    reloaded = search_all(client)
+    snap["reload_and_first_searches_s"] = time.perf_counter() - t
+    for tier in SERVICE_TIERS:
+        assert_same_hits(f"reloaded {tier}", reloaded[tier], before[tier],
+                         tol=0.0)
+    log("service_snapshot", **snap)
+    out["snapshot"] = snap
+
+    # The Qdrant façade (its root is the copy from before the writes),
+    # by the raw REST calls of the reference's qdrant-client.
+    q_out = {}
+    base = f"{qurl}/collections"
+    must = {"must": [{"key": "class_name", "match": {"value": "c3"}}]}
+    for tag, extra, want_hits in (
+            ("approximate", {}, rest["int8"]),
+            ("exact", {"params": {"exact": True}}, rest["exact"]),
+            ("filtered", {"filter": must}, filtered)):
+        hits = [http_json("POST", f"{base}/{name}/points/search", {
+            "vector": q.tolist(), "limit": k, "with_payload": True,
+            **extra})["result"] for q in queries]
+        got = [[store.Record(id=str(h["id"]), payload=None, score=h["score"])
+                for h in r] for r in hits]
+        assert_same_hits(f"façade {tag}", got, want_hits)
+    fv = rng.standard_normal((256, D), dtype=np.float32)
+    fpl = [{"data_type": "original_images", "class_name": f"c{i % 8}",
+            "img_path": f"/facade/{i}.png", "is_cropped": True,
+            "is_segmented": False, "is_augmented": False,
+            "is_delegate": False, "delegate_type": None} for i in range(256)]
+    http_json("PUT", f"{base}/facade", {"vectors": {"size": D,
+                                                    "distance": "Cosine"}})
+    http_json("PUT", f"{base}/facade/points?wait=true", {"points": [
+        {"id": i, "vector": fv[i].tolist(), "payload": fpl[i]}
+        for i in range(256)]})
+    native = client_lib.RemoteVectorStore(url).create_collection("facade",
+                                                                 dim=D)
+    native.upsert([str(i) for i in range(256)], fv, fpl)
+    c1 = {"must": [{"key": "class_name", "match": {"value": "c1"}}]}
+    hits = [http_json("POST", f"{base}/facade/points/search", {
+        "vector": fv[i].tolist(), "limit": 5, "filter": c1,
+        "with_payload": True})["result"] for i in range(0, 256, 37)]
+    got = [[store.Record(id=str(h["id"]), payload=None, score=h["score"])
+            for h in r] for r in hits]
+    assert_same_hits("façade vs native", got, native.search(
+        fv[0:256:37], k=5, flt=Filter(must={"class_name": "c1"}),
+        exact=False))
+    page = http_json("POST", f"{base}/facade/points/scroll", {
+        "limit": 100, "with_payload": True, "with_vector": True,
+        "filter": c1})["result"]["points"]
+    if sorted(int(p["id"]) for p in page) != list(range(1, 256, 8)) or \
+            not all(np.array_equal(np.asarray(p["vector"], np.float32),
+                                   fv[int(p["id"])]) for p in page):
+        raise AssertionError("the façade's filtered scroll is wrong")
+    fresh = store.VectorStore(device="cuda")
+    t = time.perf_counter()
+    migrate.import_qdrant(fresh, qurl, collections=["facade"], quiet=True)
+    q_out["import_256_s"] = time.perf_counter() - t
+    imported = fresh.get("facade").retrieve([str(i) for i in range(256)],
+                                            with_vectors=True)
+    if len(imported) != 256 or not all(
+            r.id == str(i) and np.array_equal(r.vector, fv[i])
+            and r.payload.to_dict() == fpl[i]
+            for i, r in enumerate(imported)):
+        raise AssertionError("import_qdrant changed ids, vectors or payloads")
+    stop_servers(qsrv)
+    del qsrv, fresh, native
+    log("service_qdrant", **q_out)
+
+    # Two shard servers behind serve_router, each over the snapshot with
+    # the other shard's ids (by shard_of) deleted: its exact top-10 is
+    # the single server's.
+    r_out = {}
+    t = time.perf_counter()
+    src = srv.service.store.get(name)
+    all_ids = src._ids
+    ids = [all_ids[r] for r in np.flatnonzero(src._mask_live(None))]
+    which = [router_lib.shard_of(i, 2) for i in ids]
+    shard_urls, shard_srvs = [], []
+    for s in (0, 1):
+        part = persist.load_store(root / "native", mmap_vectors=True,
+                                  device="cuda")
+        part.get(name).delete(ids=[i for i, w in zip(ids, which) if w != s])
+        persist.save_store(part, root / f"shard{s}")
+        del part
+        shard_srvs.append(server_lib.serve(root / f"shard{s}",
+                                           host="127.0.0.1", port=0,
+                                           device="cuda"))
+        shard_urls.append(serve_in_thread(shard_srvs[-1]))
+    r_out["split_and_save_s"] = time.perf_counter() - t
+    r_out["shard_rows"] = [which.count(s) for s in (0, 1)]
+    rsrv = router_lib.serve_router(shard_urls, host="127.0.0.1", port=0)
+    rurl = serve_in_thread(rsrv)
+    rclient = client_lib.GalleryClient(rurl, name)
+    t = time.perf_counter()
+    assert_same_hits("router exact", rclient.search(queries, k=k),
+                     reloaded["exact"])
+    r_out["first_exact_search_s"] = time.perf_counter() - t
+    if rclient.count() != client.count():
+        raise AssertionError("the router's count differs")
+    routed = [f"routed-{i}" for i in range(64)]
+    rv = rng.standard_normal((64, D), dtype=np.float32)
+    rclient.upsert(routed, rv, new_pls[:64])
+    client.upsert(routed, rv, new_pls[:64])
+    for s, u in enumerate(shard_urls):
+        mine = [i for i in routed if router_lib.shard_of(i, 2) == s]
+        got = client_lib.GalleryClient(u, name).retrieve(routed,
+                                                         with_vectors=False)
+        if sorted(r.id for r in got) != sorted(mine):
+            raise AssertionError(f"shard {s} holds the wrong routed ids")
+    probe = np.concatenate([queries, rv[:16]])
+    assert_same_hits("router exact after a routed write",
+                     rclient.search(probe, k=k), client.search(probe, k=k))
+    r_out["search_ms_client_clock"] = host_ms(
+        lambda: rclient.search(queries, k=k))
+    stop_servers(rsrv, *shard_srvs, srv)
+    rsrv.service._pool.shutdown()
+    log("service_router", **r_out)
+    out["router"] = r_out
+    return out, reloaded["int8"]
+
+
+def sharded_path(torch, np, port, gallery, queries, root, reloaded,
+                 seed: int):
+    """The sharded tier on one card: ``attach_mesh`` of a 4-shard mesh that
+    lists cuda:0 four times, so B2 or B3 launches once per shard per
+    search; each tier against the single-device one; 1,000 rows upserted
+    and 1,000 deleted through the store API (the view patched, not
+    rebuilt); then ``serve(mesh_devices=-1)`` (one shard on one card) and a
+    REST search. Returns its numbers and the view, for the kernel checks
+    after the path's counts are read."""
+    mesh_lib, server_lib = port["mesh"], port["server"]
+    client_lib, schema = port["client"], port["schema"]
+    S, S4 = port["int8_scan"], port["int4_scan"]
+    k, D = 10, gallery.dim
+    rng = np.random.default_rng(seed + 60)
+    out = {"rows": len(gallery), "queries": len(queries), "k": k}
+    single = {t: gallery.search(queries, k=k, method=t)
+              for t in ("exact", "int8")}
+    mesh = mesh_lib.make_mesh({"gallery": 4}, ["cuda:0"] * 4)
+    gallery.attach_mesh(mesh)
+    t = time.perf_counter()
+    auto = gallery.search(queries, k=k)  # method=None: the sharded tier
+    out["view_build_and_first_search_s"] = time.perf_counter() - t
+    view = gallery._shard_view
+    if view is None:
+        raise AssertionError("method=None did not route to the sharded tier")
+    out["rows_per_shard"] = view.rows_per
+    out["devices"] = [str(d) for d in view.devices]
+    assert_same_hits("sharded auto", auto, single["exact"])
+    res, out["launches_per_search"] = {}, {}
+    for tier in ("sharded_exact", "sharded_int8", "sharded_int4"):
+        gallery.search(queries, k=k, method=tier)  # builds its mirror
+        b2, b3 = S.KERNEL.launches, S4.KERNEL.launches
+        res[tier] = gallery.search(queries, k=k, method=tier)
+        out["launches_per_search"][tier] = {
+            "B2": S.KERNEL.launches - b2, "B3": S4.KERNEL.launches - b3}
+    if out["launches_per_search"] != {
+            "sharded_exact": {"B2": 0, "B3": 0},
+            "sharded_int8": {"B2": 4, "B3": 0},
+            "sharded_int4": {"B2": 0, "B3": 4}}:
+        raise AssertionError(f"sharded launches {out['launches_per_search']}")
+    assert_same_hits("sharded_exact", res["sharded_exact"], single["exact"])
+    if ids_of(res["sharded_int8"]) != ids_of(single["int8"]):
+        raise AssertionError("sharded_int8 ids differ from the int8 tier's")
+    out["int4_top10_overlap_with_exact"] = overlap(
+        ids_of(res["sharded_int4"]), ids_of(single["exact"]), k)
+    if out["int4_top10_overlap_with_exact"] < 0.9:
+        raise AssertionError(f"sharded int4 overlap {out}")
+    out["search_ms_host_clock"] = {t: host_ms(
+        lambda t=t: gallery.search(queries, k=k, method=t))
+        for t in res}
+    log("sharded_tiers", **out)
+
+    # Writes through the store API patch the view in place.
+    w = {}
+    new_ids = [f"shard-new-{i}" for i in range(1000)]
+    new_vecs = rng.standard_normal((1000, D), dtype=np.float32)
+    t = time.perf_counter()
+    gallery.upsert(new_ids, new_vecs, [schema.Payload(
+        data_type="original_images", class_name=f"c{i % 8}", img_path="")
+        for i in range(1000)])
+    top1 = list(dict.fromkeys(r[0].id for r in res["sharded_exact"]))
+    others = [gallery._id_at(int(r)) for r in rng.choice(
+        len(gallery) - 1000, 1200, replace=False)]
+    victims = (top1 + [i for i in others if i not in top1])[:1000]
+    if gallery.delete(ids=victims) != 1000:
+        raise AssertionError("the delete did not take 1,000 ids")
+    w["upsert_and_delete_1000_s"] = time.perf_counter() - t
+    if [r[0].id for r in gallery.search(new_vecs[:16], k=1)] != \
+            new_ids[:16]:
+        raise AssertionError("an upserted row is not its own sharded hit")
+    want = live_exact_topk(torch, np, gallery, queries, k)
+    after = {t: gallery.search(queries, k=k, method=t) for t in res}
+    if gallery._shard_view is not view:
+        raise AssertionError("a write rebuilt the sharded view")
+    if any(set(victims) & ids for r in after.values() for ids in ids_of(r)):
+        raise AssertionError("a deleted id came back from the sharded tier")
+    for tier in ("sharded_exact", "sharded_int8"):
+        if ids_of(after[tier]) != want:
+            raise AssertionError(f"{tier} after the writes differs from the "
+                                 "exact search over the live rows")
+    w["int4_top10_overlap_with_live_exact"] = overlap(
+        ids_of(after["sharded_int4"]), want, k)
+    if w["int4_top10_overlap_with_live_exact"] < 0.9:
+        raise AssertionError(f"sharded int4 overlap after writes {w}")
+    gallery.detach_mesh()
+    log("sharded_writes", **w)
+    out.update(w)
+
+    # mesh_devices=-1 clamps to the cards there are: one shard on cuda:0.
+    t = time.perf_counter()
+    srv = server_lib.serve(root / "native", host="127.0.0.1", port=0,
+                           mesh_devices=-1, device="cuda")
+    url = serve_in_thread(srv)
+    if srv.service.store.get(gallery.name)._gallery_mesh.shape != {
+            "gallery": torch.cuda.device_count()}:
+        raise AssertionError("mesh_devices=-1 did not take every card")
+    client = client_lib.GalleryClient(url, gallery.name)
+    client.search(queries, k=k, exact=False)  # builds the view
+    b2 = S.KERNEL.launches
+    hits = client.search(queries, k=k, exact=False)
+    out["mesh_server_b2_launches"] = S.KERNEL.launches - b2
+    if out["mesh_server_b2_launches"] != torch.cuda.device_count():
+        raise AssertionError(f"mesh server launches {out}")
+    assert_same_hits("mesh server", hits, reloaded)
+    out["mesh_server_s"] = time.perf_counter() - t
+    stop_servers(srv)
+    log("sharded_serve", mesh_server_s=out["mesh_server_s"],
+        b2_launches=out["mesh_server_b2_launches"])
+    return out, view
+
+
+def shard_kernel_checks(torch, port, view, queries) -> dict:
+    """B2 and B3 on each shard of the sharded view (its shape on the
+    path) against their plain scans, bit for bit, and one shard's kernel
+    time; after the path's counts are read."""
+    search, S, S4 = port["search"], port["int8_scan"], port["int4_scan"]
+    q = search.l2_normalize(torch.from_numpy(queries).cuda())
+    q_i8 = search.quantize_rows_int8(q)
+    err = {"B2": 0.0, "B3": 0.0}
+    for s in range(len(view.devices)):
+        pen = torch.where(view.dev_mask[s], 0.0, search.NEG_INF).to(
+            torch.float32)
+        packed, scales = view._dev_int4[s]
+        for kid, got, want in (
+                ("B2", S.int8_scan_scores(q_i8, view._dev_int8[s], pen),
+                 S.int8_scan_scores_plain(q_i8, view._dev_int8[s], pen)),
+                ("B3", S4.int4_scan_scores(q_i8, packed, scales, pen),
+                 S4.int4_scan_scores_plain(q_i8, packed, scales, pen))):
+            err[kid] = max(err[kid], float((got - want).abs().max()))
+    if err != {"B2": 0.0, "B3": 0.0}:
+        raise AssertionError(f"a shard's scan is off its plain version {err}")
+    pen = torch.where(view.dev_mask[0], 0.0, search.NEG_INF).to(
+        torch.float32)
+    packed, scales = view._dev_int4[0]
+    Q, N, D = len(queries), view.rows_per, view.dev_vectors[0].shape[1]
+    # One shard's scan: the queries, the rows, the penalties (and B3's
+    # scales) read once, the [Q, N] f32 scores written once.
+    b2_bound, _ = bound_ms(Q * D + N * D + 4 * N + 4 * Q * N,
+                           2 * Q * N * D, "int8")
+    b3_bound, _ = bound_ms(Q * D + N * D // 2 + 8 * N + 4 * Q * N,
+                           2 * Q * N * D, "int8")
+    out = {"shape": [Q, N, D], "shards": len(view.devices),
+           "max_abs_err": err, "b2_bound_ms_one_shard": b2_bound,
+           "b3_bound_ms_one_shard": b3_bound,
+           "b2_ms_one_shard": cuda_ms(torch, lambda: S.int8_scan_scores(
+               q_i8, view._dev_int8[0], pen), reps=10),
+           "b3_ms_one_shard": cuda_ms(torch, lambda: S4.int4_scan_scores(
+               q_i8, packed, scales, pen), reps=10)}
+    log("sharded_kernels", **out)
+    return out
+
+
 def analysis_phase(port, csv_paths) -> dict:
     """analyze(make_plots=False) on the experiment path's result CSVs: the
     summary and the eight metric files with the reference's names."""
@@ -1749,6 +2286,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    import tempfile
+    from pathlib import Path
+
     try:
         import numpy as np
         import torch
@@ -1756,7 +2296,8 @@ def main(argv=None) -> int:
 
         from retrieval_based_object_detection_tpu_torch import native
         from retrieval_based_object_detection_tpu_torch.gallery import (
-            capacity, persist, schema, search, store,
+            capacity, client, persist, router, schema, search, server,
+            store,
         )
         from retrieval_based_object_detection_tpu_torch.models.clip import (
             model as clip_model, preprocess,
@@ -1771,8 +2312,9 @@ def main(argv=None) -> int:
             attention as A, clip_attention as CA, cuda_lib, image,
             int4_scan as S4, int8_scan as S, medoid as M,
         )
+        from retrieval_based_object_detection_tpu_torch.parallel import mesh
         from retrieval_based_object_detection_tpu_torch.pipelines import (
-            analysis, delegates, embed, experiments, segment, serve,
+            analysis, delegates, embed, experiments, migrate, segment, serve,
         )
         from retrieval_based_object_detection_tpu_torch.train import (
             loop as train_loop, train,
@@ -1797,7 +2339,9 @@ def main(argv=None) -> int:
             "train_loop": train_loop, "checkpoint": checkpoint, "sam": sam,
             "sam_encoder": sam_encoder, "sam_decoder": sam_decoder,
             "segment": segment, "persist": persist, "capacity": capacity,
-            "native": native, "analysis": analysis}
+            "native": native, "analysis": analysis, "server": server,
+            "client": client, "router": router, "migrate": migrate,
+            "mesh": mesh}
 
     # Full f32 on the card: no TF32 in matmuls or convolutions.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1883,7 +2427,36 @@ def main(argv=None) -> int:
     log("gallery_path", seconds=time.perf_counter() - t_gallery,
         launches=launches)
     cap_b3 = capacity_kernel_timing(torch, S4, search, view, cap_q)
-    del big, view, cap_q
+    del view, cap_q
+    torch.cuda.empty_cache()
+
+    # The service path and the sharded path, over the same gallery
+    # compacted: launch counts from the start of each to its end only.
+    big.compact()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t = time.perf_counter()
+        zero_counts()
+        _, reloaded = service_path(torch, np, port, big, queries,
+                                   Path(tmp), args.seed)
+        by_path["service"] = launches = read_counts()
+        if launches["B2"] < 1 or launches["B3"] < 1:
+            raise AssertionError(f"service path launches {launches}")
+        log("service_path", seconds=time.perf_counter() - t,
+            launches=launches)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        zero_counts()
+        sharded_out, shard_view = sharded_path(torch, np, port, big, queries,
+                                               Path(tmp), reloaded, args.seed)
+        by_path["sharded"] = launches = read_counts()
+        if launches["B2"] < 4 or launches["B3"] < 4:
+            raise AssertionError(f"sharded path launches {launches}")
+        log("sharded_path", seconds=time.perf_counter() - t,
+            launches=launches, max_memory_allocated_gb=
+            torch.cuda.max_memory_allocated() / 1e9)
+    shard_b = shard_kernel_checks(torch, port, shard_view, queries)
+    del big, shard_view
     torch.cuda.empty_cache()
 
     # The training path: launch counts from here to its end only.
@@ -1930,11 +2503,23 @@ def main(argv=None) -> int:
             attn["bfloat16"], [64, 50, 2304], dtype="bfloat16",
             float32=f32(attn)),
         row("int8_scan", "B2", SCAN_SOURCE, SCAN_REPLACES, scan,
-            [16, 1 << 20, 512]),
+            [16, 1 << 20, 512],
+            sharded={"shape": shard_b["shape"], "shards": shard_b["shards"],
+                     "max_abs_err": shard_b["max_abs_err"]["B2"],
+                     "ms_one_shard": shard_b["b2_ms_one_shard"],
+                     "bound_ms_one_shard": shard_b["b2_bound_ms_one_shard"],
+                     "launches_per_search": sharded_out[
+                         "launches_per_search"]["sharded_int8"]["B2"]}),
         row("int4_scan", "B3", INT4_SOURCE, INT4_REPLACES, int4,
             [16, 1 << 20, 512],
             capacity_10m={**cap_b3, "launches_per_search":
-                          cap_out["b3_launches_per_search"]}),
+                          cap_out["b3_launches_per_search"]},
+            sharded={"shape": shard_b["shape"], "shards": shard_b["shards"],
+                     "max_abs_err": shard_b["max_abs_err"]["B3"],
+                     "ms_one_shard": shard_b["b3_ms_one_shard"],
+                     "bound_ms_one_shard": shard_b["b3_bound_ms_one_shard"],
+                     "launches_per_search": sharded_out[
+                         "launches_per_search"]["sharded_int4"]["B3"]}),
         row("medoid_sums", "B4", MEDOID_SOURCE, MEDOID_REPLACES, med,
             [12_000, 512]),
         row("clip_attention_bwd", "B5", ATTN_SOURCE, BWD_REPLACES,

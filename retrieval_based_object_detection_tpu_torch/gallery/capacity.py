@@ -39,6 +39,20 @@ _CHUNK = 1 << 18  # staging rows per upload (512 MB f32 at D=512)
 _TILE = 4096
 
 
+def fill_planes(bf16: torch.Tensor, packed: torch.Tensor,
+                scales: torch.Tensor, staged: torch.Tensor,
+                start: int) -> None:
+    """Normalise one f32 chunk already on the planes' device and write its
+    bf16 rows, packed int4 rows and scales at row ``start``."""
+    rows = staged / torch.clamp(
+        torch.linalg.vector_norm(staged, dim=1, keepdim=True), min=1e-12)
+    p, s = search_lib.pack_rows_int4(rows)
+    m = rows.shape[0]
+    bf16[start: start + m] = rows.to(torch.bfloat16)
+    packed[start: start + m] = p
+    scales[start: start + m] = s
+
+
 def _bf16_from_host(rows: np.ndarray, device: torch.device) -> torch.Tensor:
     """bf16 rows held on the host as their 16-bit patterns (any 2-byte
     dtype: a planes sidecar's uint16) → a bf16 tensor on ``device``."""
@@ -97,16 +111,8 @@ class CapacitySearcher:
         self._id_to_row: dict[str, int] | None = None
 
     def _fill(self, staged: torch.Tensor, start: int) -> None:
-        """Normalise one f32 chunk already on the device and write its
-        bf16 rows, packed int4 rows and scales at row ``start``."""
-        rows = staged / torch.clamp(
-            torch.linalg.vector_norm(staged, dim=1, keepdim=True),
-            min=1e-12)
-        p, s = search_lib.pack_rows_int4(rows)
-        m = rows.shape[0]
-        self.dev_bf16[start: start + m] = rows.to(torch.bfloat16)
-        self.dev_packed[start: start + m] = p
-        self.dev_scales[start: start + m] = s
+        fill_planes(self.dev_bf16, self.dev_packed, self.dev_scales, staged,
+                    start)
 
     @classmethod
     def from_device_planes(cls, bf16: torch.Tensor, packed: torch.Tensor,
@@ -325,7 +331,7 @@ class CapacitySearcher:
                 n = min(self.n_rows, m.shape[0])
                 buf[:n] = m[:n]
                 mask = mask & upload(buf, self.device)
-        q = torch.from_numpy(queries).to(self.device)
+        q = upload(queries, self.device)
         scores, idx = search_lib.int4_scan_topk(
             q, self.dev_packed, self.dev_scales, self.dev_bf16, mask,
             k=min(k, self.n_rows), rescore=rescore)

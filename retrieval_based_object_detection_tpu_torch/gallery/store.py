@@ -12,10 +12,10 @@ The port of the JAX package's ``gallery/store.py`` for one device:
 ``retrieve``, ``get_by_path`` (with the resolved-path fallback), lazily
 materialised ids after a binary snapshot load (``gallery.persist``),
 incrementally patched f32/bf16/int8/int4 device mirrors, the writable
-capacity view (``gallery.capacity``), and ``search`` over exact / bf16 /
-int8 / int4 / capacity under the same auto-routing, for all four metrics.
-The multi-device sharded tier raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+capacity view (``gallery.capacity``), the writable sharded view over a
+device mesh (``gallery.sharded``, ``attach_mesh``), and ``search`` over
+exact / bf16 / int8 / int4 / capacity / sharded under the same
+auto-routing, for all four metrics.
 """
 
 from __future__ import annotations
@@ -42,12 +42,6 @@ from retrieval_based_object_detection_tpu_torch.utils.platform import (
 )
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet "
-        f"(ROADMAP.md queue A, item {item})")
-
-
 def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``, always as a copy: ``torch.from_numpy``
     aliases host memory, and on the CPU ``.to(device)`` keeps the alias,
@@ -57,7 +51,8 @@ def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _replay_view_ops(view, ops: list[tuple], vectors: np.ndarray) -> None:
-    """Drive a writable serving view (``CapacitySearcher``) through a
+    """Drive a writable serving view (``CapacitySearcher`` or
+    ``ShardedGallerySearcher``) through a
     pending-op log, IN ORDER. ``("rows", sorted_row_array)`` replays
     contiguous runs as one incremental patch each; ``("mask", [rows])``
     tombstones. Raises ValueError when the view's build-time headroom
@@ -208,6 +203,14 @@ class Gallery:
         self._cap_view = None
         self._cap_pending: list[tuple] = []
         self._cap_mask_cache: dict[Any, torch.Tensor] = {}
+        # Sharded serving tier (method="sharded", auto once a gallery mesh
+        # is attached — attach_mesh): a lazily built WRITABLE
+        # ShardedGallerySearcher kept in sync through its own pending-op
+        # log, with per-filter device masks split alongside the rows.
+        self._gallery_mesh = None
+        self._shard_view = None
+        self._shard_pending: list[tuple] = []
+        self._shard_mask_cache: dict[Any, list[torch.Tensor]] = {}
         # Capacity-plane sidecar (gallery/planes.py), recorded by the
         # snapshot loader; checked against the snapshot identity when the
         # view is built (a stale sidecar falls back to the device build).
@@ -449,7 +452,7 @@ class Gallery:
             self._mark_dirty(int(existing.min()), int(existing.max()) + 1)
         else:
             self._mask_cache.clear()  # appends change the validity mask
-        if self._cap_view is not None:
+        if self._cap_view is not None or self._shard_view is not None:
             # EXACT row sets, not covering ranges: replaying a covering
             # span would mark every row in between valid, reviving the
             # tombstones inside it.
@@ -457,8 +460,12 @@ class Gallery:
             if len(self._ids) > old_len:
                 written = np.union1d(
                     written, np.arange(old_len, len(self._ids)))
-            self._cap_pending.append(("rows", written))
+            if self._cap_view is not None:
+                self._cap_pending.append(("rows", written))
+            if self._shard_view is not None:
+                self._shard_pending.append(("rows", written))
         self._cap_mask_cache.clear()
+        self._shard_mask_cache.clear()
         self._patch_resolved(rows)
         self._wseq += 1
         if self._snap_id is not None:
@@ -521,15 +528,18 @@ class Gallery:
                 self._resolved_remove(r, key)
         self._mask_cache.clear()  # validity changed; mirrors still good
         self._cap_mask_cache.clear()
+        self._shard_mask_cache.clear()
         if self._cap_view is not None:
             self._cap_pending.append(("mask", dropped))
+        if self._shard_view is not None:
+            self._shard_pending.append(("mask", dropped))
         self._wseq += 1
         if (self._n_dead >= self._COMPACT_DEAD_MIN
                 and self._n_dead >= self._COMPACT_DEAD_FRACTION * n):
-            if self._cap_view is not None or \
-                    n >= self._COMPACT_INLINE_MAX_ROWS:
+            if (self._cap_view is not None or self._shard_view is not None
+                    or n >= self._COMPACT_INLINE_MAX_ROWS):
                 # Backpressure: compacting here would rebuild every mirror
-                # and the capacity view mid-request. Flag it for
+                # and the capacity or sharded view mid-request. Flag it for
                 # maintain() and keep serving off tombstones.
                 if not self._compact_due:
                     self._compact_due = True
@@ -544,7 +554,8 @@ class Gallery:
     def warm(self, k: int = 10,
              filters: Sequence[Filter] = ()) -> float:
         """Pre-pay the first query's costs now: build the auto serving
-        tier's device state (the capacity view or the mirrors) and the
+        tier's device state (the sharded or capacity view, or the mirrors)
+        and the
         device masks of ``filters``, so the first client query is steady
         state. Returns wall seconds; a no-op on an empty collection."""
         t0 = time.perf_counter()
@@ -552,11 +563,14 @@ class Gallery:
             q = np.asarray(self._vectors[:1], np.float32)  # a real row
             k_eff = min(k, len(self))
             # exact=False follows the auto route; the f32 mirror of
-            # exact=True is warmed too where it fits.
-            exact_fits = not (self.distance == "cosine"
-                              and self.dim % 2 == 0
-                              and self._nrows * self.dim * 5
-                              > self.CAPACITY_AUTO_BYTES)
+            # exact=True is warmed too where it fits (under a mesh or at
+            # capacity scale an exact search raises or never runs through
+            # this store's mirrors).
+            exact_fits = (self._gallery_mesh is None
+                          and not (self.distance == "cosine"
+                                   and self.dim % 2 == 0
+                                   and self._nrows * self.dim * 5
+                                   > self.CAPACITY_AUTO_BYTES))
             for exact in ((False, True) if exact_fits else (False,)):
                 self.search(q, k=k_eff, exact=exact)
                 for flt in filters:
@@ -602,9 +616,6 @@ class Gallery:
         self._snap_dead_rows.clear()
         self._invalidate_mirrors()  # compaction reshuffles rows
         return reclaimed
-
-    def attach_mesh(self, mesh) -> None:
-        raise _not_ported("the sharded tier (attach_mesh)", "A.6")
 
     # ------------------------------------------------------------ reads
     def _records(self, rows: np.ndarray, with_vectors: bool) -> list[Record]:
@@ -807,6 +818,9 @@ class Gallery:
         self._cap_view = None
         self._cap_pending.clear()
         self._cap_mask_cache.clear()
+        self._shard_view = None
+        self._shard_pending.clear()
+        self._shard_mask_cache.clear()
 
     def _mark_dirty(self, lo: int, hi: int) -> None:
         """Record a host-row write; mirrors patch the range at next sync
@@ -1028,6 +1042,138 @@ class Gallery:
                                   extra_mask=self._cap_filter_mask(flt))
         return self._rows_to_records(scores, idx, k_eff, with_vectors)
 
+    # ------------------------------------------------------ sharded tier
+    def attach_mesh(self, mesh) -> None:
+        """Serve this collection from rows sharded over ``mesh``'s
+        ``gallery`` axis (``parallel.mesh``): searches then AUTO-route to
+        the sharded tier (method=None → "sharded"), and writes keep the
+        sharded view patched incrementally."""
+        from retrieval_based_object_detection_tpu_torch.gallery import sharded
+
+        if sharded.AXIS not in mesh.shape:
+            raise ValueError(
+                f"mesh has no '{sharded.AXIS}' axis: {dict(mesh.shape)}")
+        if self.distance != "cosine":
+            raise ValueError(
+                "the sharded tier serves cosine collections (rows are "
+                "pre-normalised shard-side); detach or use the "
+                "single-device tiers for other metrics")
+        with self._view_mut:
+            if mesh is not self._gallery_mesh:
+                self._gallery_mesh = mesh
+                self._shard_view = None
+                self._shard_pending.clear()
+                self._shard_mask_cache.clear()
+                # Auto-routing now targets the sharded tier, so a live
+                # single-device capacity view would never be read again
+                # while every write kept growing its pending-op log. Drop
+                # it; an explicit method="capacity" search rebuilds it.
+                self._cap_view = None
+                self._cap_pending.clear()
+                self._cap_mask_cache.clear()
+
+    def detach_mesh(self) -> None:
+        """Drop the mesh and the sharded view; searches fall back to the
+        single-device tiers."""
+        with self._view_mut:
+            self._gallery_mesh = None
+            self._shard_view = None
+            self._shard_pending.clear()
+            self._shard_mask_cache.clear()
+
+    def _ensure_shard_view_locked(self, sharded):
+        """Build (or incrementally sync) the writable sharded view from the
+        pending-op log — small writes patch tiles on their shards, never
+        rebuild. Called under ``_view_mut``, as the capacity view's sync
+        is: replay-and-clear must be atomic across readers."""
+        if self._gallery_mesh is None:
+            raise ValueError(
+                "no gallery mesh attached — call attach_mesh(mesh) "
+                "before method='sharded' searches")
+        if self._shard_view is None:
+            n = self._nrows
+            n_shards = self._gallery_mesh.shape[sharded.AXIS]
+            # Residency per shard decides the layout, as the single-device
+            # auto route does: past the budget, bf16 + int4 planes only.
+            cap = (self.distance == "cosine" and self.dim % 2 == 0
+                   and n * self.dim * 5 / max(1, n_shards)
+                   > self.CAPACITY_AUTO_BYTES)
+            self._shard_view = sharded.ShardedGallerySearcher.from_gallery(
+                self, self._gallery_mesh, capacity=cap,
+                headroom=max(4096, n // 8))
+            self._shard_pending.clear()
+            self._shard_mask_cache.clear()
+            return self._shard_view
+        view = self._shard_view
+        try:
+            _replay_view_ops(view, self._shard_pending, self._vectors)
+        except ValueError:
+            # Outgrew the build-time headroom: one rebuild, then the
+            # incremental path resumes.
+            self._shard_view = None
+            return self._ensure_shard_view_locked(sharded)
+        self._shard_pending.clear()
+        return view
+
+    def _shard_filter_mask(self, flt: Filter | None):
+        """Per-filter device masks split alongside the sharded rows
+        (cached: re-uploading N bools per query would dominate). Validity
+        and tombstones live in the view's own mask; this carries the
+        payload filter only."""
+        if flt is None:
+            return None
+        view = self._shard_view
+        key = flt.cache_key()
+        cached = self._shard_mask_cache.get(key)
+        if cached is not None and cached[0].shape[0] == view.rows_per:
+            return cached
+        with self._view_mut:
+            cached = self._shard_mask_cache.get(key)
+            if cached is not None and cached[0].shape[0] == view.rows_per:
+                return cached
+            masks = view.split_mask(self._payloads.mask(flt))
+            if len(self._shard_mask_cache) >= 64:
+                self._shard_mask_cache.clear()
+            self._shard_mask_cache[key] = masks
+            return masks
+
+    def _sharded_search(self, queries: np.ndarray, k: int,
+                        flt: Filter | None, with_vectors: bool,
+                        exact: bool, tier: str | None
+                        ) -> list[list[Record]]:
+        from retrieval_based_object_detection_tpu_torch.gallery import sharded
+
+        with self._view_mut:
+            view = self._ensure_shard_view_locked(sharded)
+            if tier is None:
+                if view.capacity:
+                    if exact:
+                        # The single-device analog fails loudly too;
+                        # serving int4 here would break "exact means
+                        # exact" on the one path where nobody opted into
+                        # approximation.
+                        raise ValueError(
+                            "exact search is unavailable at this scale: "
+                            "the sharded view keeps bf16+int4 planes only "
+                            "(per-shard residency past "
+                            "CAPACITY_AUTO_BYTES). Pass exact=False for "
+                            "the serving tier, or pin "
+                            "method='sharded_bf16'/'sharded_int4'.")
+                    tier = "int4"
+                elif exact:
+                    tier = "exact"
+                else:
+                    tier = ("int8" if self._nrows >= self.INT8_SCAN_MIN_ROWS
+                            and view.devices[0].type == "cuda" else "bf16")
+            # The tier's lazy int8/int4 mirrors build under the lock too:
+            # two readers never build one twice or read half of one.
+            view.ensure_mirror(tier)
+        k_eff = min(k, len(self))
+        scores, idx = view.search(
+            queries, k=k_eff, exact=exact, method=tier,
+            extra_mask=self._shard_filter_mask(flt))
+        return self._rows_to_records(scores, idx, k_eff, with_vectors)
+
     # ------------------------------------------------------------ search
     def _rows_to_records(self, scores: np.ndarray, idx: np.ndarray,
                          k_eff: int, with_vectors: bool
@@ -1070,16 +1216,26 @@ class Gallery:
         compensated in the scan, the same f32 rescore — exact hit scores,
         a top-k SET approximate at the margin; even dims only), "capacity"
         (the bf16-rescore + int4-plane tier at ~2.5 bytes/dim residency,
-        writable and kept in sync incrementally), or None — exact when
+        writable and kept in sync incrementally), "sharded" (the sharded
+        tier over the mesh from ``attach_mesh``: a scan per shard and an
+        O(shards × k) merge; its sub-tier from ``exact`` and scale, or
+        pinned with "sharded_exact" / "sharded_bf16" / "sharded_int8" /
+        "sharded_int4"), or None — sharded when a gallery mesh is attached
+        (past the per-shard capacity budget only quantised planes are
+        resident, so ``exact=True`` then raises); else exact when
         ``exact=True``; else auto: bf16 for the non-cosine metrics,
         capacity once the standard mirrors exceed CAPACITY_AUTO_BYTES,
         int8 on CUDA at ≥INT8_SCAN_MIN_ROWS rows, bf16 below. The
-        quantised tiers serve cosine collections only. "sharded[_<tier>]"
-        raises: that tier is not ported.
+        quantised tiers serve cosine collections only.
         """
         n = self._nrows
         if method is None:
-            if exact:
+            if self._gallery_mesh is not None:
+                # Mesh attached: the sharded tier IS the serving path (its
+                # exact sub-tier equals single-device exact top-k, ties
+                # broken by shard order).
+                method = "sharded"
+            elif exact:
                 method = "exact"
             elif self.distance != "cosine":
                 method = "bf16"  # int8 quantisation assumes unit rows
@@ -1091,13 +1247,25 @@ class Gallery:
             else:
                 method = ("int8" if n >= self.INT8_SCAN_MIN_ROWS
                           and self.device.type == "cuda" else "bf16")
+        shard_tier: str | None = None
         if method == "sharded" or method.startswith("sharded_"):
-            raise _not_ported(f"method={method!r}", "A.6")
-        if method not in ("exact", "bf16", "int8", "int4", "capacity"):
+            # A malformed "shardedfoo" falls through to the unknown-method
+            # ValueError below (the HTTP API forwards method strings).
+            if method != "sharded":
+                shard_tier = method[len("sharded_"):]
+                if shard_tier not in ("exact", "bf16", "int8", "int4"):
+                    raise ValueError(f"unknown sharded tier {method!r}")
+            method = "sharded"
+        elif method not in ("exact", "bf16", "int8", "int4", "capacity"):
             raise ValueError(
                 f"unknown method {method!r}: expected one of "
-                "'exact', 'bf16', 'int8', 'int4', 'capacity' "
-                "(or None for auto)")
+                "'exact', 'bf16', 'int8', 'int4', 'capacity', "
+                "'sharded[_<tier>]' (or None for auto)")
+        if method == "sharded" and shard_tier in ("int8", "int4") \
+                and self.distance != "cosine":
+            raise ValueError(
+                f"sharded tier {shard_tier!r} requires a cosine "
+                "collection (the quantised tiers assume unit-norm rows)")
         if method in ("int8", "int4", "capacity") \
                 and self.distance != "cosine":
             raise ValueError(
@@ -1111,6 +1279,11 @@ class Gallery:
             queries = queries[None, :]
         if len(self) == 0:  # no LIVE points (all-tombstoned included)
             return [[] for _ in range(queries.shape[0])]
+        if method == "sharded":
+            # Mesh-resident rows, a scan per shard and the merge; never
+            # touches the single-device mirrors.
+            return self._sharded_search(queries, k, flt, with_vectors,
+                                        exact, shard_tier)
         if method == "capacity":
             # Own device residency (bf16 + int4 planes, no f32 mirror);
             # never touches _sync_mirrors.
@@ -1119,7 +1292,7 @@ class Gallery:
                            bf16=(method == "bf16"), i8=(method == "int8"))
         mask = self._device_mask(flt)
         k_eff = min(k, n)
-        q = torch.from_numpy(queries).to(self.device)
+        q = upload(queries, self.device)  # may be a read-only request buffer
         if method == "int4":
             rescore = min(max(8 * k_eff, 256), self._padded)
             if self._dev_int4 is None:
@@ -1188,6 +1361,27 @@ class VectorStore:
         # deletes/renames, never load failures (a collection skipped on
         # load must survive unrelated saves).
         self._tombstones: set[str] = set()
+        # Store-level mesh: applied to every current and FUTURE cosine
+        # collection (attach_mesh), so a sharded deployment configures
+        # sharding once, not per collection.
+        self._mesh = None
+
+    def attach_mesh(self, mesh) -> int:
+        """Attach a gallery mesh store-wide: every current cosine
+        collection serves through the sharded tier, and collections created
+        later inherit it. Returns the number attached now."""
+        self._mesh = mesh
+        n = 0
+        for g in self._collections.values():
+            if g.distance == "cosine":
+                g.attach_mesh(mesh)
+                n += 1
+        return n
+
+    def detach_mesh(self) -> None:
+        self._mesh = None
+        for g in self._collections.values():
+            g.detach_mesh()
 
     def list_collections(self) -> list[tuple[str, int]]:
         """[(name, point_count)] — mirrors qdrant_manager.py:41-50."""
@@ -1201,6 +1395,8 @@ class VectorStore:
         if name in self._collections and not recreate:
             raise KeyError(f"collection exists: {name}")
         g = Gallery(name, dim=dim, distance=distance, device=self.device)
+        if self._mesh is not None and distance == "cosine":
+            g.attach_mesh(self._mesh)
         self._collections[name] = g
         self._tombstones.discard(name)
         return g

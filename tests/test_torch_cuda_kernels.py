@@ -552,6 +552,64 @@ def test_delete_reaches_each_scan_tier(cuda_device):
         assert {h.id for h in e} == {h.id for h in i8}
 
 
+@pytest.mark.parametrize("method", ["int8", "int4"])
+def test_sharded_scan_four_shards_on_one_card(cuda_device, method):
+    """A 4-shard sharded view on cuda:0 (the mesh lists the card four
+    times), 600,000 rows, so each shard pads to a multiple of 8,192 rows:
+    one search launches B2 or B3 once per shard, each shard's kernel
+    scores equal its plain scan's bit for bit, and the merged top-10
+    equals the merge of the plain twins' per-shard top-10."""
+    from retrieval_based_object_detection_tpu_torch.gallery import (
+        search, sharded,
+    )
+    from retrieval_based_object_detection_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+
+    n, d, k = 600_000, 512, 10
+    rows = _unit_rows(n, d, 6)
+    live = torch.rand(n, generator=torch.Generator().manual_seed(7)).numpy()
+    mesh = make_mesh({"gallery": 4}, [cuda_device] * 4)
+    view = sharded.ShardedGallerySearcher(rows, live > 0.1, mesh)
+    assert view.rows_per == 155_648 and view.rows_per % 8192 == 0
+    view.ensure_mirror(method)
+    q = rows[:16] + 0.3 * _unit_rows(16, d, 8)
+    kernel = S.KERNEL if method == "int8" else S4.KERNEL
+    before = kernel.launches
+    scores, idx = view.search(q, k=k, method=method)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 4
+    qd = torch.from_numpy(q).to(cuda_device)
+    q_i8 = search.quantize_rows_int8(search.l2_normalize(qd))
+    rescore = min(max(8 * k, 256), view.rows_per)
+    twin_s, twin_i = [], []
+    for s in range(4):
+        pen = torch.where(view.dev_mask[s], 0.0, search.NEG_INF).to(
+            torch.float32)
+        if method == "int8":
+            got = S.int8_scan_scores(q_i8, view._dev_int8[s], pen)
+            want = S.int8_scan_scores_plain(q_i8, view._dev_int8[s], pen)
+            ts, ti = search.int8_cosine_topk(
+                qd, view._dev_int8[s], view.dev_vectors[s], view.dev_mask[s],
+                k=k, rescore=rescore)
+        else:
+            packed, scales = view._dev_int4[s]
+            got = S4.int4_scan_scores(q_i8, packed, scales, pen)
+            want = S4.int4_scan_scores_plain(q_i8, packed, scales, pen)
+            ts, ti = search.int4_cosine_topk(
+                qd, packed, scales, view.dev_vectors[s], view.dev_mask[s],
+                k=k, rescore=rescore)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+        twin_s.append(ts)
+        twin_i.append(ti)
+    ws, wi = sharded._gather_merge(twin_s, twin_i, view.rows_per, k)
+    torch.testing.assert_close(torch.from_numpy(scores), ws.cpu(),
+                               atol=1e-6, rtol=0)
+    for a, b in zip(idx, wi.cpu().numpy()):
+        assert set(a) == set(b)
+    assert view._host_mask[idx].all()
+
+
 @pytest.mark.parametrize("distance", ["dot", "euclid", "manhattan"])
 def test_metric_topk_exact_on_the_card_vs_float64(cuda_device, distance):
     """``masked_metric_topk(exact=True)`` on CUDA multiplies in f32 with

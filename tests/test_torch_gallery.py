@@ -143,17 +143,31 @@ def test_auto_routing_on_cpu_serves_bf16_not_int8(monkeypatch):
 
 
 def test_unported_paths_raise_naming_the_roadmap():
-    """Only the sharded tier (ROADMAP A.6) is still unported; the capacity
-    tier, deletes and the non-cosine metrics are served."""
+    """Every tier of the store is served: the sharded tier routes once a
+    mesh is attached (and asks for one before), the capacity tier, deletes
+    and the non-cosine metrics too; unknown methods are a ValueError."""
+    from retrieval_based_object_detection_tpu_torch.parallel.mesh import (
+        gallery_mesh, make_mesh)
+
     g = TGallery("u", dim=8, device="cpu")
     g.upsert(["a", "b"], np.eye(2, 8, dtype=np.float32),
              [tschema.Payload(data_type="original_images", class_name="x")]
              * 2)
     for method in ("sharded", "sharded_int8"):
-        with pytest.raises(NotImplementedError, match="A.6"):
+        with pytest.raises(ValueError, match="attach_mesh"):
             g.search(np.ones(8, np.float32), method=method)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        g.attach_mesh(None)
+    with pytest.raises(ValueError, match="no 'gallery' axis"):
+        g.attach_mesh(make_mesh({"dp": 2}, ["cpu"] * 2))
+    g.attach_mesh(gallery_mesh(2, device="cpu"))
+    for method in (None, "sharded", "sharded_exact", "sharded_int8",
+                   "sharded_int4"):
+        hit = g.search(np.eye(1, 8, dtype=np.float32), k=1, method=method)
+        assert hit[0][0].id == "a"
+    assert g._shard_view is not None and g._dev_f32 is None
+    with pytest.raises(ValueError, match="unknown sharded tier"):
+        g.search(np.ones(8, np.float32), method="sharded_int16")
+    g.detach_mesh()
+    assert g._shard_view is None
     with pytest.raises(ValueError, match="unknown method"):
         g.search(np.ones(8, np.float32), method="int16")
     # Asked for by name the capacity tier serves, at any size.

@@ -34,7 +34,10 @@ def test_every_port_module_imports_without_jax():
               "utils.checkpoint", "train.train", "train.loop",
               "models.sam.encoder", "models.sam.decoder", "models.sam.model",
               "pipelines.segment", "pipelines.analysis", "native",
-              "gallery.capacity", "gallery.persist", "gallery.planes"):
+              "gallery.capacity", "gallery.persist", "gallery.planes",
+              "parallel.mesh", "parallel.multihost", "gallery.sharded",
+              "gallery.store", "gallery.server", "gallery.qdrant_compat",
+              "gallery.client", "gallery.router", "pipelines.migrate"):
         assert p + m in mods
     code = (
         "import importlib, sys\n"
