@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch port: its serving, offline, gallery,
-service, sharded, training and segment paths on one NVIDIA GPU.
+"""Chip smoke test of the PyTorch port: its serving, detection, offline,
+gallery, service, sharded, training and segment paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -8,7 +8,7 @@ Builds the port's CUDA kernels from ``csrc/`` (one nvcc per source, all
 started together), counts the tensor-core instructions of each
 tensor-core kernel (B1, B3, B4, B5, B6, B7), and holds each kernel against its
 plain PyTorch version at the shapes its path gives it. Then it drives
-seven paths through the calls a user makes, at full width from seeded
+eight paths through the calls a user makes, at full width from seeded
 weights:
 
 - serving: a few hundred synthetic crops are embedded into a Gallery,
@@ -49,7 +49,19 @@ weights:
   file that does not decode, then ``set_image`` and ``predict``; the
   encoder is held against its einsum attention (f32 and bf16) and
   ``segment_batch``
-  against per-image ``predict`` on the card.
+  against per-image ``predict`` on the card;
+- detection (the front of the pipeline, run after the serving path):
+  ``run_ingest`` of 192 product photos of 480 x 640 (a camera duplicate
+  and a file that does not decode beside them); YOLOv8s at 640 from
+  seeded weights, its heads and decode against the same module in
+  float64 (TF32 off and on), ``predict`` and ``postprocess`` timed,
+  ``run_labeling`` over a copy of the tree; ``run_labeling`` with the
+  saliency proposer (labels against the known product boxes);
+  ``run_crop``; ``run_augment`` on 8 crops, the deterministic ops equal
+  to the CPU's; ``fit_detector`` of the default TinyDet and its boxes on
+  held-out photos; ``embed_tree`` of the crops and a
+  ``RetrievalDetector`` answering 8 ``detect`` calls with TinyDet as its
+  external detector.
 
 Kernel launch counters are zeroed just before each path and read just
 after it.
@@ -2281,6 +2293,435 @@ def segment_checks(torch, np, port, predictor, img, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------- the detection path
+# The front of the pipeline (ingest → labeling → crop → augment → TinyDet →
+# embed → serving). Product photos of 480 x 640, 8 classes of 24.
+DET_CLASSES, DET_PER_CLASS, DET_H, DET_W = 8, 24, 480, 640
+YOLO_VARIANT, YOLO_SIZE, YOLO_BATCH = "yolov8s", 640, 16
+# The YOLO heads on the card against the same module in float64: f32 sums
+# in another order (TF32 off, as this script runs), and TF32's 10-bit
+# mantissa on every conv input when a user leaves cuDNN's default on.
+YOLO_TOL = {"float32": 1e-3, "tf32": 3e-2}  # of the largest head value
+TINYDET_EPOCHS, TINYDET_LR = 12, 1e-3
+
+
+def product_photo(np, rng, color, h=DET_H, w=DET_W):
+    """A studio shot: a light, slightly graded background with one
+    coloured product and its shadow at a random box; → (image, box)."""
+    bh = int(rng.integers(h // 4, h // 2))
+    bw = int(rng.integers(w // 5, w // 2))
+    y = int(rng.integers(h // 12, h - bh - h // 12))
+    x = int(rng.integers(w // 12, w - bw - w // 12))
+    ramp = np.linspace(-8, 8, w)[None, :, None]
+    img = np.full((h, w, 3), 228.0) + ramp
+    img[y + 6:y + bh + 6, x + 6:x + bw + 6] *= 0.8   # shadow
+    img[y:y + bh, x:x + bw] = color
+    img += rng.integers(0, 10, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8), (x, y, x + bw, y + bh)
+
+
+def detection_tree(np, root, seed: int):
+    """``root/original_images/class<c>/IMG_<i>.png`` for 8 classes of 24,
+    a camera duplicate ``IMG_0 (2).png`` and a file that does not decode;
+    encoded on 8 threads. → {(class, stem): box}."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    jobs, boxes = [], {}
+    for c in range(DET_CLASSES):
+        d = root / "original_images" / f"class{c}"
+        d.mkdir(parents=True)
+        for i in range(DET_PER_CLASS):
+            img, box = product_photo(np, rng, COLORS[c])
+            jobs.append((img, d / f"IMG_{i}.png"))
+            boxes[(f"class{c}", f"IMG_{i}")] = box
+    jobs.append((jobs[0][0], root / "original_images" / "class0" /
+                 "IMG_0 (2).png"))
+    (root / "original_images" / "class1" / "IMG_99.png").write_bytes(
+        b"not a png")
+
+    def save(job):
+        Image.fromarray(job[0]).save(job[1], compress_level=1)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        list(ex.map(save, jobs))
+    return boxes
+
+
+def box_iou(a, b) -> float:
+    ix = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    iy = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    union = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
+             - inter)
+    return inter / max(union, 1e-9)
+
+
+def label_boxes(port, jpeg_root, boxes):
+    """IoU of each image's first label line with its product box."""
+    crop = port["crop"]
+    out = []
+    for (cls, stem), box in boxes.items():
+        path = jpeg_root / "original_images" / cls / f"{stem}.txt"
+        labels = crop.parse_yolo_label(path) if path.exists() else []
+        out.append(box_iou(crop.yolo_to_xyxy(labels[0], DET_W, DET_H), box)
+                   if labels else 0.0)
+    return out
+
+
+def yolo_phase(torch, np, port, jpeg_root, work, seed: int) -> dict:
+    """YOLOv8s at 640 from seeded weights: the raw heads, the decode and
+    the detections of a batch of 16 canvases against the same module in
+    float64, predict and postprocess timed on that batch, then
+    ``run_labeling`` over a copy of the tree."""
+    import shutil
+
+    from PIL import Image
+
+    Y, YD, L = port["yolo_model"], port["yolo_detector"], port["labeling"]
+    cfg = Y.VARIANTS[YOLO_VARIANT]
+    t0 = time.perf_counter()
+    state = Y.params_from_jax(Y.init_params(cfg, seed))
+    det = YD.YoloDetector(state, cfg, image_size=YOLO_SIZE,
+                          conf_threshold=0.0, max_det=16, device="cuda")
+    ref = Y.build_model(state, cfg, device="cuda").double()
+    paths = sorted((jpeg_root / "original_images").rglob("*.jpeg"))
+    canv = np.stack([L.letterbox(np.asarray(Image.open(p).convert("RGB")),
+                                 YOLO_SIZE)[0]
+                     for p in paths[:: len(paths) // YOLO_BATCH][:YOLO_BATCH]])
+    x = torch.as_tensor(canv, device="cuda").float() / 255.0
+    out = {"variant": YOLO_VARIANT, "image_size": YOLO_SIZE,
+           "num_classes": cfg.num_classes,
+           "parameters": sum(p.numel() for p in det.model.parameters())}
+    want = Y.forward_features(ref, x.double())
+    wb, wp = Y.predict(ref, x.double())
+    ref_dets = Y.postprocess(wb.float().cpu().numpy(),
+                             wp.float().cpu().numpy(), 0.0, 0.45, 16)
+    for mode, tf32 in (("float32", False), ("tf32", True)):
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            heads = Y.forward_features(det.model, x)
+            boxes, probs = Y.predict(det.model, x)
+            torch.cuda.synchronize()
+            errs = [float((h.double() - w).abs().max() / w.abs().max())
+                    for h, w in zip(heads, want)]
+            out[f"heads_rel_err_vs_float64_{mode}"] = max(errs)
+            out[f"probs_abs_err_vs_float64_{mode}"] = float(
+                (probs.double() - wp).abs().max())
+            out[f"boxes_abs_err_px_vs_float64_{mode}"] = float(
+                (boxes.double() - wb).abs().max())
+            out[f"predict_ms_batch{YOLO_BATCH}_{mode}"] = cuda_ms(
+                torch, lambda: Y.predict(det.model, x), reps=5, warmup=2)
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
+        if max(errs) > YOLO_TOL[mode] or \
+                out[f"probs_abs_err_vs_float64_{mode}"] > YOLO_TOL[mode]:
+            raise AssertionError(f"YOLO {mode} vs float64: {out}")
+        # Host NMS on the card's scores against the float64 run's: the
+        # same detections by class, box (IoU ≥ 0.9) and score (1e-4), not
+        # by index (near-ties may order differently).
+        got = Y.postprocess(boxes.cpu().numpy(), probs.cpu().numpy(), 0.0,
+                            0.45, 16)
+        matched = total = 0
+        for g, r in zip(got, ref_dets):
+            for b, sc, c in zip(g["boxes"], g["scores"], g["classes"]):
+                total += 1
+                matched += any(cc == c and abs(ss - sc) <= 1e-4 and
+                               box_iou(bb, b) >= 0.9
+                               for bb, ss, cc in zip(r["boxes"],
+                                                     r["scores"],
+                                                     r["classes"]))
+            kept = list(zip(g["boxes"], g["classes"]))
+            if any(ca == cb and box_iou(a, b) > 0.45 + 1e-6
+                   for i, (a, ca) in enumerate(kept)
+                   for b, cb in kept[i + 1:]):
+                raise AssertionError("NMS kept two same-class boxes past "
+                                     "the IoU threshold")
+            if list(g["scores"]) != sorted(g["scores"], reverse=True):
+                raise AssertionError("detections not sorted by score")
+        out[f"detections_matching_float64_{mode}"] = f"{matched}/{total}"
+        if total != YOLO_BATCH * 16 or \
+                (mode == "float32" and matched < 0.75 * total):
+            raise AssertionError(f"YOLO detections vs float64: {out}")
+    out["tolerance_of_largest_head"] = YOLO_TOL
+    b16, p16 = boxes.cpu().numpy(), probs.cpu().numpy()
+    out["postprocess_ms_host_batch16_conf0"] = host_ms(
+        lambda: Y.postprocess(b16, p16, 0.0, 0.45, 16), reps=3)
+    out["postprocess_ms_host_batch16_conf0.25"] = host_ms(
+        lambda: Y.postprocess(b16, p16, 0.25, 0.45, 16), reps=3)
+
+    # run_labeling over a copy of the tree; random weights score every
+    # class near sigmoid(-5), so the gate is 0 to write labels at all.
+    copy = work / "yolo_labels"
+    shutil.copytree(jpeg_root, copy)
+    t = time.perf_counter()
+    res = L.run_labeling(L.LabelConfig(root_dir=str(copy), batch_size=16,
+                                       det_size=YOLO_SIZE, conf_threshold=0.0,
+                                       max_object_count=4), detector=det)
+    out["run_labeling_s"] = time.perf_counter() - t
+    n = DET_CLASSES * DET_PER_CLASS
+    out["run_labeling_images_per_s"] = n / out["run_labeling_s"]
+    lines = [len(p.read_text().splitlines())
+             for p in (copy / "original_images").rglob("IMG_*.txt")]
+    if res.labeled != n or res.failed or lines != [4] * n:
+        raise AssertionError(f"YOLO labeling: {res} {set(lines)}")
+    out["labeled"] = res.labeled
+    out["seconds"] = time.perf_counter() - t0
+    log("detection_yolo", **out)
+    del det, ref
+    return out
+
+
+def tinydet_phase(torch, np, port, jpeg_root, seed: int):
+    """``fit_detector`` with the default TinyDet on the saliency labels,
+    its loss on a labeled batch before and after, one step timed, and its
+    boxes on held-out photos."""
+    from PIL import Image
+
+    TD, DL, L = port["tinydet"], port["detector_loop"], port["labeling"]
+    crop = port["crop"]
+    cfg = TD.TinyDetConfig()
+    fit_cfg = DL.DetFitConfig(root_dir=str(jpeg_root),
+                              epochs=TINYDET_EPOCHS, batch_size=8,
+                              learning_rate=TINYDET_LR, seed=seed)
+    # One labeled batch (each class's first labeled photo), prepared as
+    # fit_detector prepares its batches.
+    labeled = sorted((jpeg_root / "original_images").rglob("IMG_*.txt"))
+    firsts = {}
+    for p in labeled:
+        firsts.setdefault(p.parent.name, p.with_suffix(".jpeg"))
+    imgs, gts, valid = [], [], []
+    for p in firsts.values():
+        arr = np.asarray(Image.open(p).convert("RGB"))
+        canvas, scale = L.letterbox(arr, cfg.image_size)
+        lab = crop.parse_yolo_label(p.with_suffix(".txt"))[0]
+        gt = np.zeros((fit_cfg.max_boxes, 4), np.float32)
+        gt[0] = np.asarray(crop.yolo_to_xyxy(lab, DET_W, DET_H)) * scale
+        imgs.append(canvas.astype(np.float32))
+        gts.append(gt)
+        valid.append(np.arange(fit_cfg.max_boxes) == 0)
+    batch = [torch.as_tensor(np.stack(a), device="cuda")
+             for a in (imgs, gts, valid)]
+
+    def batch_loss(params):
+        with torch.no_grad():
+            return float(TD.loss_fn(params, *batch, cfg)[0])
+
+    init = TD.params_from_jax(TD.init_params(cfg, seed), device="cuda")
+    loss0 = batch_loss(init)
+    t = time.perf_counter()
+    params, metrics = DL.fit_detector(cfg, fit_cfg, device="cuda")
+    fit_s = time.perf_counter() - t
+    loss1 = batch_loss(params)
+    steps = TINYDET_EPOCHS * (len(labeled) // 8)
+    out = {"config": {"image_size": cfg.image_size,
+                      "channels": list(cfg.channels),
+                      "head_dim": cfg.head_dim},
+           "epochs": TINYDET_EPOCHS, "steps": steps, "batch": 8,
+           "learning_rate": TINYDET_LR, "fit_s": fit_s,
+           "fit_images_per_s": steps * 8 / fit_s,
+           "loss_on_a_labeled_batch_before": loss0,
+           "loss_on_a_labeled_batch_after": loss1,
+           "last_step_metrics": metrics}
+    if not loss1 < 0.5 * loss0:
+        raise AssertionError(f"TinyDet loss did not fall: {out}")
+    # One step alone, on a copy of the trained weights.
+    step, opt_init = TD.make_train_step(cfg, TINYDET_LR)
+    scratch = TD.params_from_jax(params, device="cuda")
+    opt = opt_init(scratch)
+    out["train_step_ms"] = cuda_ms(
+        torch, lambda: step(scratch, opt, *batch), reps=10, warmup=2)
+
+    detector = DL.TinyDetDetector(params, cfg, device="cuda")
+    rng = np.random.default_rng(seed + 17)
+    held, truth, scales = [], [], []
+    for i in range(2 * DET_CLASSES):
+        img, box = product_photo(np, rng, COLORS[i % DET_CLASSES])
+        canvas, scale = L.letterbox(img, cfg.image_size)
+        held.append(canvas)
+        truth.append(box)
+        scales.append(scale)
+    held = np.stack(held)
+    boxes, scores = detector(held)
+    ious = [box_iou(b[0] / s, t) for b, s, t in zip(boxes, scales, truth)]
+    out["heldout_top_box_iou"] = sorted(round(float(v), 3) for v in ious)
+    out["heldout_hits_iou_0.5"] = f"{sum(v >= 0.5 for v in ious)}/{len(ious)}"
+    if sum(v >= 0.5 for v in ious) < 0.75 * len(ious) or \
+            not (scores[:, 0] > 0.25).all():
+        raise AssertionError(f"TinyDet on held-out photos: {out}")
+    out["decode_ms_batch16"] = cuda_ms(
+        torch, lambda: TD.decode(detector.params,
+                                 torch.as_tensor(held, device="cuda"), cfg),
+        reps=10, warmup=2)
+    log("detection_tinydet", **out)
+    return out, detector, held
+
+
+def detection_path(torch, np, port, clip_params, seed: int) -> dict:
+    """The front of the pipeline on the card: ingest → YOLOv8s labeling
+    (a copy) and saliency labeling → crop → augment → TinyDet training →
+    embed_tree of the crops (B1) → RetrievalDetector serving with TinyDet
+    as its external detector."""
+    import tempfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    I, L, C, A = (port["ingest"], port["labeling"], port["crop"],
+                  port["augment"])
+    t_path = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_det_") as tmp:
+        work = Path(tmp)
+        t = time.perf_counter()
+        boxes = detection_tree(np, work / "dataset_heic", seed + 11)
+        write_s = time.perf_counter() - t
+        jpeg = work / "dataset_jpeg"
+        t = time.perf_counter()
+        res = I.run_ingest(I.IngestConfig(src_root=str(work / "dataset_heic"),
+                                          dst_root=str(jpeg)))
+        n = DET_CLASSES * DET_PER_CLASS
+        ingest = {"photos": n, "size": [DET_H, DET_W],
+                  "write_png_s": write_s,
+                  "ingest_s": time.perf_counter() - t, **vars(res)}
+        ingest["ingest_images_per_s"] = n / ingest["ingest_s"]
+        if (res.n_converted, res.n_skipped_duplicate, res.n_failed,
+                res.n_skipped_existing) != (n, 1, 1, 0):
+            raise AssertionError(f"ingest: {res}")
+        log("detection_ingest", **ingest)
+
+        yolo = yolo_phase(torch, np, port, jpeg, work, seed)
+
+        t = time.perf_counter()
+        lab = L.run_labeling(L.LabelConfig(root_dir=str(jpeg), batch_size=16),
+                             device="cuda")
+        label_s = time.perf_counter() - t
+        ious = label_boxes(port, jpeg, boxes)
+        hits = sum(v >= 0.5 for v in ious)
+        sal = {"labeled": lab.labeled, "no_object": lab.skipped_no_object,
+               "failed": lab.failed, "run_labeling_s": label_s,
+               "images_per_s": n / label_s,
+               "label_iou_min": min(ious),
+               "label_iou_median": float(np.median(ious)),
+               "labels_hitting_the_product_iou_0.5": f"{hits}/{n}"}
+        log("detection_saliency", **sal)
+        if hits < 0.9 * n:
+            raise AssertionError(f"saliency labels: {sal}")
+
+        cropped = work / "dataset_cropped"
+        t = time.perf_counter()
+        cres = C.run_crop(C.CropConfig(src_root=str(jpeg),
+                                       dst_root=str(cropped)))
+        crop_s = time.perf_counter() - t
+        n_lines = sum(len(C.parse_yolo_label(p)) for p in
+                      (jpeg / "original_images").rglob("IMG_*.txt"))
+        written = list((cropped / "original_images").rglob("*.jpeg"))
+        if cres.n_objects != n_lines or len(written) != n_lines:
+            raise AssertionError(f"crop: {cres}, {n_lines} label lines")
+        aug_src = work / "augment_src"
+        for c in range(2):
+            d = aug_src / "original_images" / f"class{c}"
+            d.mkdir(parents=True)
+            for p in sorted((cropped / "original_images" /
+                             f"class{c}").iterdir())[:4]:
+                (d / p.name).write_bytes(p.read_bytes())
+        acfg = A.AugmentConfig(src_root=str(aug_src),
+                               dst_root=str(work / "dataset_augmented"),
+                               seed=seed)
+        t = time.perf_counter()
+        ares = A.run_augment(acfg, device="cuda")
+        aug_s = time.perf_counter() - t
+        want = {f"class{c}/{name}" for c in range(2)
+                for p in (aug_src / "original_images" /
+                          f"class{c}").iterdir()
+                for name in A.variant_names(p.stem, p.suffix, acfg)}
+        got = {f"{p.parent.name}/{p.name}" for p in
+               (work / "dataset_augmented" / "original_images").rglob("*")
+               if p.is_file()}
+        if (ares.n_inputs, ares.n_written, ares.n_failed) != (8, 208, 0) or \
+                got != want:
+            raise AssertionError(f"augment: {ares}")
+        # The deterministic ops on one crop: the card equals the CPU.
+        one = torch.from_numpy(np.array(
+            Image.open(written[0]).convert("RGBA"))).float()
+        img = port["image"]
+        checks = [(f"brightness_{r}", lambda x, r=r: img.brightness(x, r))
+                  for r in img.BRIGHTNESS_RATES]
+        checks += [(f"rot{a}", lambda x, a=a: img.rotate_expand(x, float(a)))
+                   for a in img.ROTATION_ANGLES]
+        checks += [(f"blur{r}", lambda x, r=r: img.gaussian_blur(x, r))
+                   for r in (2, 4, 6)]
+        differ = [name for name, fn in checks
+                  if not torch.equal(fn(one.cuda()).cpu(), fn(one))]
+        if differ:
+            raise AssertionError(f"augment ops differ card vs CPU: {differ}")
+        log("detection_crop_augment", crops=cres.n_objects, crop_s=crop_s,
+            crops_per_s=cres.n_objects / crop_s, augment_inputs=ares.n_inputs,
+            augment_files=ares.n_written, augment_s=aug_s,
+            augment_inputs_per_s=ares.n_inputs / aug_s,
+            ops_equal_to_cpu_bit_for_bit=[name for name, _ in checks],
+            crop_shape=list(one.shape))
+
+        tiny, tdet, held = tinydet_phase(torch, np, port, jpeg, seed)
+
+        # Embed the crops (B1 in every block) and serve with TinyDet boxes.
+        clip_model, embed = port["clip_model"], port["embed"]
+        cfg = clip_model.VIT_B_32
+        gallery = port["store"].Gallery("detection", dim=cfg.embed_dim,
+                                        device="cuda")
+        encoder = embed.make_encoder(clip_params, cfg, device="cuda")
+        t = time.perf_counter()
+        eres = embed.embed_tree(gallery, encoder, embed.EmbedConfig(
+            root_dir=str(cropped), batch_size=64))
+        embed_s = time.perf_counter() - t
+        built = port["delegates"].build_delegates(gallery)
+        if eres.total != cres.n_objects or \
+                built.n_delegates_written != 4 * DET_CLASSES:
+            raise AssertionError(f"embed {eres}, delegates {built}")
+        calls = {"ms": []}
+
+        def timed_detector(images):
+            t = time.perf_counter()
+            res = tdet(images)
+            calls["ms"].append((time.perf_counter() - t) * 1e3)
+            return res
+
+        server = port["serve"].RetrievalDetector(
+            clip_params, gallery, cfg, detector=timed_detector,
+            device="cuda")
+        classes = [f"class{c}" for c in range(DET_CLASSES)]
+        detect_ms, answers = [], []
+        for i in range(DET_CLASSES):
+            t = time.perf_counter()
+            answers.append(server.detect(held[i:i + 1])[0])
+            detect_ms.append((time.perf_counter() - t) * 1e3)
+        for i, a in enumerate(answers):
+            for d in a["detections"]:
+                x1, y1, x2, y2 = d["box"]
+                if not (0 <= x1 < x2 <= 256 and 0 <= y1 < y2 <= 256) or \
+                        d["class_name"] not in classes or \
+                        not -1.0 <= d["similarity"] <= 1.0 + 1e-6:
+                    raise AssertionError(f"bad detection {d}")
+        x = torch.as_tensor(held[:1], device="cuda")
+        d2h = host_ms(lambda: x.cpu().numpy(), reps=5)
+        correct = sum(a["class_name"] == classes[i]
+                      for i, a in enumerate(answers))
+        serve_out = {"crops_embedded": eres.total, "embed_tree_s": embed_s,
+                     "embed_tree_crops_per_s": eres.total / embed_s,
+                     "embed_batches": math.ceil(eres.total / 64),
+                     "delegates": built.n_delegates_written,
+                     "detect_requests": len(answers),
+                     "detect_ms_host_clock": detect_ms,
+                     "external_detector_call_ms": calls["ms"],
+                     "images_to_host_ms": d2h,
+                     "top1_class_matches_photo_colour":
+                         f"{correct}/{len(answers)}"}
+        log("detection_serve", **serve_out)
+    out = {"ingest": ingest, "yolo": yolo, "saliency": sal, "tinydet": tiny,
+           "serve": serve_out, "seconds": time.perf_counter() - t_path}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2303,7 +2744,7 @@ def main(argv=None) -> int:
             model as clip_model, preprocess,
         )
         from retrieval_based_object_detection_tpu_torch.models.detector import (
-            saliency,
+            saliency, tinydet,
         )
         from retrieval_based_object_detection_tpu_torch.models.sam import (
             decoder as sam_decoder, encoder as sam_encoder, model as sam,
@@ -2313,11 +2754,15 @@ def main(argv=None) -> int:
             int4_scan as S4, int8_scan as S, medoid as M,
         )
         from retrieval_based_object_detection_tpu_torch.parallel import mesh
+        from retrieval_based_object_detection_tpu_torch.models.yolo import (
+            detector as yolo_detector, model as yolo_model,
+        )
         from retrieval_based_object_detection_tpu_torch.pipelines import (
-            analysis, delegates, embed, experiments, migrate, segment, serve,
+            analysis, augment, crop, delegates, embed, experiments, ingest,
+            labeling, migrate, segment, serve,
         )
         from retrieval_based_object_detection_tpu_torch.train import (
-            loop as train_loop, train,
+            detector_loop, loop as train_loop, train,
         )
         from retrieval_based_object_detection_tpu_torch.utils import (
             checkpoint, loader, tree,
@@ -2341,7 +2786,10 @@ def main(argv=None) -> int:
             "segment": segment, "persist": persist, "capacity": capacity,
             "native": native, "analysis": analysis, "server": server,
             "client": client, "router": router, "migrate": migrate,
-            "mesh": mesh}
+            "mesh": mesh, "ingest": ingest, "labeling": labeling,
+            "crop": crop, "augment": augment, "yolo_model": yolo_model,
+            "yolo_detector": yolo_detector, "tinydet": tinydet,
+            "detector_loop": detector_loop}
 
     # Full f32 on the card: no TF32 in matmuls or convolutions.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2398,6 +2846,19 @@ def main(argv=None) -> int:
                              f"{encodes} encodes and the int8 searches")
     breakdown_phase(torch, np, port, detector, args.seed)
     del detector
+
+    # The detection path (the front of the pipeline): launch counts from
+    # here to its end only.
+    zero_counts()
+    det_out = detection_path(torch, np, port, params, args.seed)
+    by_path["detection"] = launches = read_counts()
+    encodes = det_out["serve"]["embed_batches"] + \
+        det_out["serve"]["detect_requests"]
+    if launches["B1"] < 12 * encodes:
+        raise AssertionError(f"detection launches {launches} for "
+                             f"{encodes} encodes")
+    log("detection_path", seconds=det_out["seconds"], launches=launches)
+    torch.cuda.empty_cache()
 
     # The offline path: launch counts from here to its end only.
     zero_counts()

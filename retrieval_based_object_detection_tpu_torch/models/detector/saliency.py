@@ -15,8 +15,13 @@ The JAX package's proposer with the same steps and constants:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from retrieval_based_object_detection_tpu_torch.utils.platform import (
+    resolve_device,
+)
 
 
 def _box_filter_same(x: torch.Tensor, win: int, op: str) -> torch.Tensor:
@@ -151,3 +156,32 @@ def propose_boxes(
                              device=boxes.device)
         boxes = torch.minimum(torch.clamp(boxes * ds, min=0.0), limit)
     return boxes, conf
+
+
+class SaliencyProposer:
+    """Detector-callable: batch of images → (boxes, scores) per image.
+
+    Returns up to ``max_boxes`` blob boxes per image, best first — the
+    YOLO slot's top-K-by-confidence contract keeps ARBITRARY top-K
+    (11:178-180); the default of 4 matches the label checker's
+    re-detect top-4 (12_labeling_check.py:143-164). Each extra box
+    costs one more flood fill, so K stays a deliberate knob rather than
+    unbounded. The proposal runs on ``device``; numpy in, numpy out."""
+
+    def __init__(self, border: int = 8, pool: int = 9,
+                 rel_threshold: float = 0.35, max_boxes: int = 4,
+                 device: str | torch.device = "cuda"):
+        self.border = border
+        self.pool = pool
+        self.rel_threshold = rel_threshold
+        self.max_boxes = max_boxes
+        self.device = resolve_device(device)
+
+    def __call__(self, images: np.ndarray
+                 ) -> tuple[np.ndarray, np.ndarray]:
+        """images [B, H, W, 3] uint8/float → (boxes [B, K, 4], conf [B, K])."""
+        imgs = torch.as_tensor(np.asarray(images), device=self.device)
+        boxes, conf = propose_boxes(
+            imgs.to(torch.float32), border=self.border, pool=self.pool,
+            rel_threshold=self.rel_threshold, max_boxes=self.max_boxes)
+        return boxes.cpu().numpy(), conf.cpu().numpy()

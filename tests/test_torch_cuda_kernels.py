@@ -7,6 +7,8 @@ port's dependencies they run without the JAX test harness:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
 
+import contextlib
+
 import pytest
 import torch
 
@@ -724,3 +726,95 @@ def test_medoid_kernel_rejects_what_it_does_not_take(cuda_device):
         M.pairwise_distance_sums(torch.zeros(8, 6, device=cuda_device))
     with pytest.raises(ValueError, match="contiguous"):
         M.pairwise_distance_sums(torch.zeros(16, 8, device=cuda_device).T)
+
+
+# --------------------------------------------- the front of the pipeline
+# No TPU kernel is on this path: the detectors' convolutions are cuDNN's and
+# the augment ops elementwise PyTorch. These hold the card's results to
+# float64 and to the CPU at the tolerances ``chip_smoke.py`` states.
+YOLO_TOL = {False: 1e-3, True: 3e-2}  # TF32 off / on, of the largest head
+
+
+@contextlib.contextmanager
+def cudnn_tf32(on: bool):
+    """cuDNN's process-global TF32 flag, restored on exit."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+@pytest.mark.parametrize("variant,size", [("tiny", 96), ("yolov8s", 640)])
+@pytest.mark.parametrize("tf32", [False, True])
+def test_yolo_heads_on_the_card_vs_float64(cuda_device, variant, size, tf32):
+    from retrieval_based_object_detection_tpu_torch.models.yolo import (
+        model as Y,
+    )
+
+    cfg = (Y.YoloConfig(0.33, 0.25, 1024, num_classes=7)
+           if variant == "tiny" else Y.VARIANTS[variant])
+    state = Y.params_from_jax(Y.init_params(cfg, seed=0))
+    model = Y.build_model(state, cfg, device="cuda")
+    ref = Y.build_model(state, cfg, device="cuda").double()
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(2, size, size, 3, generator=g).cuda()
+    with cudnn_tf32(tf32):
+        heads = Y.forward_features(model, x)
+        boxes, probs = Y.predict(model, x)
+    want = Y.forward_features(ref, x.double())
+    wboxes, wprobs = Y.predict(ref, x.double())
+    torch.cuda.synchronize()
+    for h, w in zip(heads, want):
+        err = float((h.double() - w).abs().max())
+        assert err <= YOLO_TOL[tf32] * float(w.abs().max()), err
+    assert float((boxes.double() - wboxes).abs().max()) <= \
+        YOLO_TOL[tf32] * size
+    assert float((probs.double() - wprobs).abs().max()) <= YOLO_TOL[tf32]
+
+
+def test_augment_ops_on_the_card_equal_the_cpu(cuda_device):
+    from retrieval_based_object_detection_tpu_torch.ops import image as I
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randint(0, 256, (83, 61, 4), generator=g).float()
+    xc = x.cuda()
+    for rate in I.BRIGHTNESS_RATES:
+        assert torch.equal(I.brightness(xc, rate).cpu(), I.brightness(x, rate))
+    for angle in I.ROTATION_ANGLES:
+        assert torch.equal(I.rotate_expand(xc, float(angle)).cpu(),
+                           I.rotate_expand(x, float(angle)))
+    for radius in (2, 4, 6):
+        assert torch.equal(I.gaussian_blur(xc, radius).cpu(),
+                           I.gaussian_blur(x, radius))
+    for level in I.NOISE_LEVELS:
+        a = I.gaussian_noise(xc, level, torch.Generator().manual_seed(3))
+        b = I.gaussian_noise(x, level, torch.Generator().manual_seed(3))
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+        a = I.salt_pepper(xc, level, torch.Generator().manual_seed(4))
+        b = I.salt_pepper(x, level, torch.Generator().manual_seed(4))
+        assert torch.equal(a.cpu(), b)
+
+
+def test_tinydet_on_the_card_vs_the_cpu(cuda_device):
+    """The forward to 1e-4 (f32 convs, TF32 off); the decoded scores to
+    1e-4. Boxes are not compared slot by slot: near-equal scores may sort
+    differently on the two devices."""
+    from retrieval_based_object_detection_tpu_torch.models.detector import (
+        tinydet as td,
+    )
+
+    cfg = td.TinyDetConfig()
+    p = td.init_params(cfg, seed=0)
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand(4, 256, 256, 3, generator=g) * 255
+    pc, pp = td.params_from_jax(p, "cuda"), td.params_from_jax(p, "cpu")
+    with cudnn_tf32(False):
+        oc, lc = td.forward(pc, x.cuda(), cfg)
+        _, sc = td.decode(pc, x.cuda(), cfg, conf_threshold=0.0)
+    o, lt = td.forward(pp, x, cfg)
+    _, s = td.decode(pp, x, cfg, conf_threshold=0.0)
+    torch.testing.assert_close(oc.cpu(), o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lc.cpu(), lt, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(sc.cpu(), s, rtol=0, atol=1e-4)

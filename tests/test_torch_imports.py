@@ -37,7 +37,12 @@ def test_every_port_module_imports_without_jax():
               "gallery.capacity", "gallery.persist", "gallery.planes",
               "parallel.mesh", "parallel.multihost", "gallery.sharded",
               "gallery.store", "gallery.server", "gallery.qdrant_compat",
-              "gallery.client", "gallery.router", "pipelines.migrate"):
+              "gallery.client", "gallery.router", "pipelines.migrate",
+              "utils.download", "ops.image", "models.detector.saliency",
+              "pipelines.labeling", "pipelines.crop", "pipelines.augment",
+              "pipelines.ingest", "models.yolo.model", "models.yolo.convert",
+              "models.yolo.download", "models.yolo.detector",
+              "models.detector.tinydet", "train.detector_loop"):
         assert p + m in mods
     code = (
         "import importlib, sys\n"
