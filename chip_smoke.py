@@ -7,7 +7,7 @@ on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``csrc/`` (one nvcc per source, all
 started together), counts the tensor-core instructions of each
-tensor-core kernel (B1, B3, B4, B5, B6, B7), and holds each kernel against its
+tensor-core kernel (B1–B7), and holds each kernel against its
 plain PyTorch version at the shapes its path gives it. Then it drives
 ten paths through the calls a user makes, at full width from seeded
 weights:
@@ -222,7 +222,8 @@ def profiler_ms(torch, fn, reps: int = 20) -> float:
 # number of instantiations and the instruction to count: the flash kernels
 # (B6/B7: f32 and bf16 x head width 32/64/128 x bias), the attention core's
 # forward and backward (B1, B5: f32 and bf16 x head width 32/64/128), the
-# medoid's tile kernel (B4) and the int4 scan (B3, on the int8 tensor cores).
+# medoid's tile kernel (B4) and the int8 and int4 scans (B2, B3, on the int8
+# tensor cores).
 TENSOR_CORE_KERNELS = {
     "attention": [
         ("flash_fwd", r"flash_fwdI(13__nv_bfloat16|f)Li(\d+)ELb([01])E", 12,
@@ -234,6 +235,7 @@ TENSOR_CORE_KERNELS = {
          "HMMA")],
     "medoid": [("tile_sums", "tile_sums", 1, "HMMA")],
     "int4_scan": [("scan", "4scanE", 1, "IMMA")],
+    "int8_scan": [("scan", "4scanE", 1, "IMMA")],
 }
 
 
@@ -540,8 +542,36 @@ def flash_phase(torch, F, A, seed: int) -> dict:
     return out
 
 
+def int_mm_yardstick(torch, q, rows, pen, want, reps: int = 20) -> dict:
+    """B2's yardstick: ``torch._int_mm(rows, q.t())``, the int8 tensor-core
+    product through cuBLASLt that computes B2's dots in exact int32 (the
+    gallery rows are its first operand: its CUDA path takes more than 16
+    rows and sizes that are multiples of 8), and the composite that writes
+    B2's whole function, ``_int_mm`` → ``.t()`` → ``+ penalty`` into a
+    [Q, N] f32 tensor. The composite is held bit for bit against the plain
+    scan ``want``."""
+    q_t = q.t()
+    out = torch.empty(q.shape[0], rows.shape[0], device=q.device)
+
+    def full():
+        return torch.add(torch._int_mm(rows, q_t).t(), pen, out=out)
+
+    full()
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError(
+            "_int_mm → .t() → + penalty differs from the plain scan: max abs "
+            f"err {float((out - want).abs().max())}")
+    return {"library": "torch._int_mm",
+            "library_ms": cuda_ms(torch, lambda: torch._int_mm(rows, q_t),
+                                  reps=reps),
+            "library_full_ms": cuda_ms(torch, full, reps=reps)}
+
+
 def scan_phase(torch, S, seed: int) -> dict:
-    """B2 against its plain version at Q=16 x N=1,048,576 x 512, bit-exact."""
+    """B2 against its plain version at Q=16 x N=1,048,576 x 512, bit-exact,
+    timed beside ``torch._int_mm`` (alone and as the composite that writes
+    B2's scores) and, for continuity, a bf16 matmul of the same rows."""
     Q, N, D = 16, 1 << 20, 512
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
     q = torch.randint(-127, 128, (Q, D), generator=g, dtype=torch.int8).cuda()
@@ -555,6 +585,9 @@ def scan_phase(torch, S, seed: int) -> dict:
         raise AssertionError(
             "int8 scan differs from its plain version: max abs err "
             f"{float((got - want).abs().max())}")
+    del got
+    yardstick = int_mm_yardstick(torch, q, rows, pen, want)
+    del want
     rows_bf16 = rows.to(torch.bfloat16)
     q_bf16 = q.to(torch.bfloat16)
     n_bytes = Q * D + N * D + 4 * N + 4 * Q * N
@@ -565,7 +598,8 @@ def scan_phase(torch, S, seed: int) -> dict:
         "plain_ms": cuda_ms(
             torch, lambda: S.int8_scan_scores_plain(q, rows, pen), reps=3,
             warmup=1),
-        "library_ms": cuda_ms(torch, lambda: q_bf16 @ rows_bf16.T),
+        **yardstick,
+        "bf16_matmul_ms": cuda_ms(torch, lambda: q_bf16 @ rows_bf16.T),
         "bound_ms": b_ms, "bound_by": b_by,
     }
     log("scan_kernel_vs_plain", shape=[Q, N, D], **out)
@@ -1978,11 +2012,17 @@ def shard_kernel_checks(torch, port, view, queries) -> dict:
                            2 * Q * N * D, "int8")
     b3_bound, _ = bound_ms(Q * D + N * D // 2 + 8 * N + 4 * Q * N,
                            2 * Q * N * D, "int8")
+    rows = view._dev_int8[0]
+    int_mm = int_mm_yardstick(torch, q_i8, rows, pen,
+                              S.int8_scan_scores_plain(q_i8, rows, pen),
+                              reps=10)
     out = {"shape": [Q, N, D], "shards": len(view.devices),
            "max_abs_err": err, "b2_bound_ms_one_shard": b2_bound,
            "b3_bound_ms_one_shard": b3_bound,
            "b2_ms_one_shard": cuda_ms(torch, lambda: S.int8_scan_scores(
-               q_i8, view._dev_int8[0], pen), reps=10),
+               q_i8, rows, pen), reps=10),
+           "int_mm_ms_one_shard": int_mm["library_ms"],
+           "int_mm_full_ms_one_shard": int_mm["library_full_ms"],
            "b3_ms_one_shard": cuda_ms(torch, lambda: S4.int4_scan_scores(
                q_i8, packed, scales, pen), reps=10)}
     log("sharded_kernels", **out)
@@ -3585,7 +3625,7 @@ def main(argv=None) -> int:
     cuda_lib.build_all(libraries)
     log("build", seconds=time.perf_counter() - t,
         libraries=[lib.path.name for lib in libraries])
-    hmma_phase([A.KERNEL, CA.KERNEL, M.KERNEL, S4.KERNEL])
+    hmma_phase([A.KERNEL, CA.KERNEL, M.KERNEL, S4.KERNEL, S.KERNEL])
 
     attn = attention_phase(torch, F, CA, args.seed)
     attn_bwd = attention_bwd_phase(torch, CA, args.seed)
@@ -3762,11 +3802,16 @@ def main(argv=None) -> int:
             attn["bfloat16"], [64, 50, 2304], dtype="bfloat16",
             float32=f32(attn)),
         row("int8_scan", "B2", SCAN_SOURCE, SCAN_REPLACES, scan,
-            [16, 1 << 20, 512],
+            [16, 1 << 20, 512], library=scan["library"],
+            library_full_ms=scan["library_full_ms"],
+            bf16_matmul_ms=scan["bf16_matmul_ms"],
             sharded={"shape": shard_b["shape"], "shards": shard_b["shards"],
                      "max_abs_err": shard_b["max_abs_err"]["B2"],
                      "ms_one_shard": shard_b["b2_ms_one_shard"],
                      "bound_ms_one_shard": shard_b["b2_bound_ms_one_shard"],
+                     "library_ms_one_shard": shard_b["int_mm_ms_one_shard"],
+                     "library_full_ms_one_shard": shard_b[
+                         "int_mm_full_ms_one_shard"],
                      "launches_per_search": sharded_out[
                          "launches_per_search"]["sharded_int8"]["B2"]}),
         row("int4_scan", "B3", INT4_SOURCE, INT4_REPLACES, int4,

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time and check the tensor-core kernels B1, B3, B4 and B5, and variants of
-them, on one NVIDIA GPU.
+"""Time and check the tensor-core kernels B1, B2, B3, B4 and B5, and variants
+of them, on one NVIDIA GPU.
 
     python3 retrieval_based_object_detection_tpu_torch/csrc/variants.py time [--root DIR]
     python3 retrieval_based_object_detection_tpu_torch/csrc/variants.py variants [--only b5]
@@ -11,19 +11,22 @@ one this file lies in): B1 and B5 at [64, 50, 2304] in bf16 and f32 (device
 time from a CUDA graph's replay; B1 also by events around eager calls) beside
 ``scaled_dot_product_attention`` and its backward (by ``torch.profiler``,
 as B5 is a second time: autograd's backward cannot be captured), B3 at 16 x 1,048,576 x
-512, B4 at 12,000 x 512 beside ``torch.cdist(x, x).sum(1)``, and one bf16
-training step of 64 crops at ViT-B/32. To compare
+512, B4 at 12,000 x 512 beside ``torch.cdist(x, x).sum(1)``, B2 at 16 x
+1,048,576 x 512 and at one shard's 16 x 294,912 x 512 beside
+``torch._int_mm`` (alone and as ``_int_mm`` → ``.t()`` → ``+ penalty``),
+and one bf16 training step of 64 crops at ViT-B/32. To compare
 two commits on one card, unpack the other one somewhere and run ``time`` for
 each root in turns, one right after the other.
 
 ``ptxas`` prints what ``nvcc -Xptxas -v`` says of each kernel of
-``clip_attention.cu`` and ``int4_scan.cu``: registers, spills, shared memory.
+``clip_attention.cu``, ``int4_scan.cu`` and ``int8_scan.cu``: registers,
+spills, shared memory.
 
-``variants`` builds copies of ``clip_attention.cu``, ``medoid.cu`` and
-``int4_scan.cu`` with one thing changed each (string edits of the sources,
-built into ``build/variants/``), and prints for each its distance from a
-float64 reference (B3: whether it equals the plain scan) and its time beside
-the committed kernels':
+``variants`` builds copies of ``clip_attention.cu``, ``medoid.cu``,
+``int4_scan.cu`` and ``int8_scan.cu`` with one thing changed each (string
+edits of the sources, built into ``build/variants/``), and prints for each
+its distance from a float64 reference (B2, B3: whether it equals the plain
+scan) and its time beside the committed kernels':
 
 - ``chain``: the running sums left in the tensor core's accumulator
   (``mma_3xtf32`` where the sources call ``mma_3xtf32_rn``);
@@ -36,7 +39,16 @@ the committed kernels':
 - ``once``: B5 with p and dl rounded to bf16 once, no hi/lo split (another
   function; what the second mma of each pair costs);
 - ``sm2``, ``sm3``, ``sm6``, ``sm8``: B3 with 2, 3, 6 or 8 blocks an SM in
-  place of 4.
+  place of 4;
+- ``b2sm2``, ``b2sm4``, ``b2sm6``: B2 with 2, 4 or 6 blocks an SM in place
+  of 3;
+- ``b2loads4``: B2 with 4 chunks a step in place of 8 (half the bytes in
+  flight a lane: two steps a tile at D = 512);
+- ``b2piece8``: B2 with 8-byte pieces (32-byte chunks a load) and 16
+  chunks a step, the same bytes in flight in twice the loads;
+- ``b2ldg``, ``b2stg``: B2's row loads through the read-only path, or its
+  score stores, with the default cache policy in place of the streaming
+  one (``__ldcs``, ``__stcs``).
 
 Both need a GPU and nvcc and fail without them.
 """
@@ -78,8 +90,20 @@ VARIANTS = {
     "sm6": ([], [("kBlocksPerSm = 4", "kBlocksPerSm = 6")]),
     "sm8": ([], [("kBlocksPerSm = 4", "kBlocksPerSm = 8")]),
     "sm2": ([], [("kBlocksPerSm = 4", "kBlocksPerSm = 2")]),
+    "b2sm2": ([], [("kScanBlocksPerSm = 3", "kScanBlocksPerSm = 2")]),
+    "b2sm4": ([], [("kScanBlocksPerSm = 3", "kScanBlocksPerSm = 4")]),
+    "b2sm6": ([], [("kScanBlocksPerSm = 3", "kScanBlocksPerSm = 6")]),
+    "b2loads4": ([], [("kLoads = 8;", "kLoads = 4;")]),
+    "b2piece8": ([], [("using Piece = int4;", "using Piece = int2;"),
+                      ("kLoads = 8;", "kLoads = 16;")]),
+    "b2ldg": ([], [("? __ldcs(reinterpret_cast<const Piece*>",
+                    "? __ldg(reinterpret_cast<const Piece*>")]),
+    "b2stg": ([], [("__stcs(out + (size_t)(q0 + j) * n + r,\n"
+                    "                 __fadd_rn((float)stage",
+                    "__stwb(out + (size_t)(q0 + j) * n + r,\n"
+                    "                 __fadd_rn((float)stage")]),
 }
-SOURCES = ("clip_attention", "medoid", "int4_scan")
+SOURCES = ("clip_attention", "medoid", "int4_scan", "int8_scan")
 NVCC = ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -170,9 +194,10 @@ def time_checkout(root: Path) -> dict:
     import torch.nn.functional as F
 
     from retrieval_based_object_detection_tpu_torch.ops import (
-        clip_attention as CA, cuda_lib, int4_scan as S4, medoid as M,
+        clip_attention as CA, cuda_lib, int4_scan as S4, int8_scan as S,
+        medoid as M,
     )
-    cuda_lib.build_all([CA.KERNEL, M.KERNEL, S4.KERNEL])
+    cuda_lib.build_all([CA.KERNEL, M.KERNEL, S4.KERNEL, S.KERNEL])
     B, T, H, D = 64, 50, 12, 64
     gen = torch.Generator().manual_seed(0)
     base = torch.randn(B, T, 3 * H * D, generator=gen).cuda()
@@ -205,7 +230,36 @@ def time_checkout(root: Path) -> dict:
     out["b3_ms"] = events_ms(torch, lambda: S4.int4_scan_scores(*args),
                              reps=20)
     del args
+    out.update(time_b2(torch, S))
     out["train_step_bf16_64_ms"] = train_step_ms(torch)
+    return out
+
+
+def time_b2(torch, S) -> dict:
+    """B2 at the serving scan's 16 x 1,048,576 x 512 and at one shard of
+    the smoke's 4-shard tier (294,912 rows): whether it equals the plain
+    scan, its time, and its yardsticks' — ``torch._int_mm(rows, q.t())``
+    alone and as ``_int_mm`` → ``.t()`` → ``+ penalty`` into [Q, N] f32
+    (held to the plain scan too)."""
+    out = {}
+    for tag, n in (("", 1 << 20), ("_shard", SHARD_ROWS)):
+        q, rows, pen = int8_case(torch, N=n)
+        want = S.int8_scan_scores_plain(q, rows, pen)
+        out[f"b2{tag}_equals_plain"] = bool(torch.equal(
+            S.int8_scan_scores(q, rows, pen), want))
+        q_t, full = q.t(), torch.empty_like(want)
+
+        def composite():
+            return torch.add(torch._int_mm(rows, q_t).t(), pen, out=full)
+
+        composite()
+        out[f"int_mm{tag}_equals_plain"] = bool(torch.equal(full, want))
+        del want
+        out[f"b2{tag}_ms"] = events_ms(
+            torch, lambda: S.int8_scan_scores(q, rows, pen), reps=20)
+        out[f"int_mm{tag}_ms"] = events_ms(
+            torch, lambda: torch._int_mm(rows, q_t), reps=20)
+        out[f"int_mm_full{tag}_ms"] = events_ms(torch, composite, reps=20)
     return out
 
 
@@ -243,6 +297,18 @@ def sdpa_backward_ms(torch, F, qkv, dout, heads):
         sdpa, (q, k, v), d_heads, retain_graph=True))
 
 
+# Rows of one shard of chip_smoke.py's 4-shard tier over the 1M gallery.
+SHARD_ROWS = 294_912
+
+
+def int8_case(torch, Q=16, N=1 << 20, D=512, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randint(-127, 128, (Q, D), generator=g, dtype=torch.int8)
+    rows = torch.randint(-127, 128, (N, D), generator=g, dtype=torch.int8)
+    pen = torch.where(torch.rand(N, generator=g) < 0.1, -1e30, 0.0)
+    return [t.cuda() for t in (q, rows, pen)]
+
+
 def int4_case(torch, Q=16, N=1 << 20, D=512, seed=4):
     g = torch.Generator().manual_seed(seed)
     q = torch.randint(-127, 128, (Q, D), generator=g, dtype=torch.int8)
@@ -276,7 +342,7 @@ def ptxas() -> None:
     import re
     import tempfile
 
-    for f in ("clip_attention", "int4_scan"):
+    for f in ("clip_attention", "int4_scan", "int8_scan"):
         with tempfile.TemporaryDirectory() as tmp:
             log = subprocess.run(
                 [*NVCC, "-Xptxas", "-v", "-I", str(HERE), "-o",
@@ -292,7 +358,7 @@ def ptxas() -> None:
 
 
 SOURCE_OF = {"b1": "clip_attention", "b5": "clip_attention",
-             "b3": "int4_scan", "b4": "medoid"}
+             "b2": "int8_scan", "b3": "int4_scan", "b4": "medoid"}
 
 
 def build_variants(out_dir: Path, only: str | None) -> None:
@@ -315,7 +381,7 @@ def build_variants(out_dir: Path, only: str | None) -> None:
             for old, new in source_edits:
                 texts[f + ".cu"] = texts[f + ".cu"].replace(old, new)
             if name == "committed" or texts[f + ".cu"] != text or \
-                    (header_edits and f != "int4_scan"):
+                    (header_edits and f not in ("int4_scan", "int8_scan")):
                 build.append(f)
         assert build, (name, "no edit matched any source")
         if only:
@@ -384,6 +450,20 @@ def int4(torch, name):
         rc = lib.int4_scan(q.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                            pen.data_ptr(), out.data_ptr(), q.shape[0],
                            packed.shape[0], q.shape[1], _stream(torch))
+        assert rc == 0, rc
+        return out
+    return run
+
+
+def int8(torch, name):
+    lib = ctypes.CDLL(str(VARIANT_DIR / name / "int8_scan.so"))
+    lib.int8_scan.argtypes = [PTR, PTR, PTR, PTR, I32, I32, I32, PTR]
+
+    def run(q, rows, pen):
+        out = torch.empty(q.shape[0], rows.shape[0], device="cuda")
+        rc = lib.int8_scan(q.data_ptr(), rows.data_ptr(), pen.data_ptr(),
+                           out.data_ptr(), q.shape[0], rows.shape[0],
+                           q.shape[1], _stream(torch))
         assert rc == 0, rc
         return out
     return run
@@ -473,6 +553,24 @@ def variants_b3(torch, S4):
                 flush=True)
 
 
+def variants_b2(torch, S):
+    """B2 at the serving scan's rows and at one shard's: equal to the plain
+    scan, then its time."""
+    names = ("committed", "b2sm2", "b2sm4", "b2sm6", "b2loads4", "b2piece8",
+             "b2ldg", "b2stg")
+    for n in (1 << 20, SHARD_ROWS):
+        args = int8_case(torch, N=n)
+        want = S.int8_scan_scores_plain(*args)
+        for _ in range(2):
+            for name in names:
+                fn = int8(torch, name)
+                print("b2_ms", name, json.dumps({
+                    "rows": n, "equals_plain": bool(torch.equal(fn(*args),
+                                                                want)),
+                    "ms": events_ms(torch, lambda: fn(*args), reps=20)}),
+                    flush=True)
+
+
 def variants_b4(torch, M):
     """B4 on near-duplicate rows against float64, then its time."""
     for n in (600, 3_000, 12_000):
@@ -497,13 +595,14 @@ def run_variants(only: str | None = None) -> None:
     import torch
 
     from retrieval_based_object_detection_tpu_torch.ops import (
-        clip_attention as CA, int4_scan as S4, medoid as M,
+        clip_attention as CA, int4_scan as S4, int8_scan as S, medoid as M,
     )
     torch.backends.cuda.matmul.allow_tf32 = False
     build_variants(VARIANT_DIR, only)
     print(card(), flush=True)
     sections = {"b1": (variants_b1, CA), "b5": (variants_b5, CA),
-                "b3": (variants_b3, S4), "b4": (variants_b4, M)}
+                "b2": (variants_b2, S), "b3": (variants_b3, S4),
+                "b4": (variants_b4, M)}
     for key in [only] if only else sections:
         fn, module = sections[key]
         fn(torch, module)

@@ -6,9 +6,12 @@ the int32 scores of ``gallery.search.int8_cosine_topk``, because
 ``127² · D < 2²⁴`` keeps every dot exact in f32 (checked: D ≤ 1040).
 
 On CUDA tensors it launches the hand-written kernel in
-``csrc/int8_scan.cu``, which takes any N (the ragged tile is masked in the
-kernel). On CPU tensors it runs ``int8_scan_scores_plain``, an integer
-matmul, which tests and ``chip_smoke.py`` hold the kernel against.
+``csrc/int8_scan.cu``, which multiplies on the int8 tensor cores
+(``mma.sync.m16n8k32.s8``: 16 queries by 8 rows by 32 dims, exact in
+int32; any N, any number of queries and any D that is a multiple of 16,
+the ragged ends masked in the kernel). On CPU tensors it runs
+``int8_scan_scores_plain``, an integer matmul, which tests and
+``chip_smoke.py`` hold the kernel against.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import ctypes
 import torch
 
 from retrieval_based_object_detection_tpu_torch.ops.cuda_lib import (
+    MAX_SMEM,
     CudaLibrary,
 )
 
@@ -26,6 +30,14 @@ KERNEL = CudaLibrary("int8_scan", {
                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p],
 })
+
+
+def _smem_bytes(dim: int) -> int:
+    """Shared memory of one block of ``csrc/int8_scan.cu``: 16 query rows
+    padded to a multiple of 64 dims, rounded up to 128 bytes, plus 64 bytes
+    of row padding, and 4 warps' 16 x 40 int32 stages."""
+    dim_pad = -(-dim // 64) * 64
+    return 16 * (-(-dim_pad // 128) * 128 + 64) + 4 * 4 * 16 * 40
 
 
 def _check_exact(dim: int) -> None:
@@ -37,8 +49,10 @@ def _check_exact(dim: int) -> None:
 
 def int8_scan_scores_plain(q_i8: torch.Tensor, gallery_i8: torch.Tensor,
                            penalty: torch.Tensor) -> torch.Tensor:
-    """Integer-matmul reference. int32 on the CPU; float64 on CUDA, which
-    has no int32 matmul — exact, since every dot is below 2²⁴."""
+    """Integer-matmul reference. int32 on the CPU; float64 on CUDA —
+    exact, since every dot is below 2²⁴, and independent of cuBLAS's int8
+    path (``torch._int_mm``), which ``chip_smoke.py`` times as B2's
+    yardstick."""
     _check_exact(q_i8.shape[1])
     acc = torch.int32 if q_i8.device.type == "cpu" else torch.float64
     dots = q_i8.to(acc) @ gallery_i8.to(acc).T
@@ -68,6 +82,10 @@ def int8_scan_scores(q_i8: torch.Tensor, gallery_i8: torch.Tensor,
                         "are required")
     if D % 16:
         raise ValueError(f"dim={D}: the kernel reads rows in 16-byte chunks")
+    smem = _smem_bytes(D)
+    if smem > MAX_SMEM:
+        raise ValueError(f"dim={D} needs {smem} bytes of shared memory, "
+                         f"more than a block has ({MAX_SMEM})")
     for name, t in (("queries", q_i8), ("gallery", gallery_i8),
                     ("penalty", penalty)):
         if t.device != q_i8.device:

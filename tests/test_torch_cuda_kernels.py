@@ -401,6 +401,54 @@ def test_scan_kernel_bit_exact_vs_plain(cuda_device, Q, N, D):
     torch.testing.assert_close(got.cpu(), cpu, atol=0, rtol=0)
 
 
+def _int8_case(Q, N, D, device, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randint(-127, 128, (Q, D), generator=g, dtype=torch.int8)
+    rows = torch.randint(-127, 128, (N, D), generator=g, dtype=torch.int8)
+    pen = torch.where(torch.rand(N, generator=g) < 0.1, -1e30, 0.0)
+    return q.to(device), rows.to(device), pen.to(device)
+
+
+# The emulation's shapes (tests/test_torch_mma_emulation.py): passes over
+# the queries, a ragged last group of 32 rows, dims that end inside a
+# 64-byte chunk (16, 48, 1040) or take more than one step a tile.
+@pytest.mark.parametrize("D", [16, 48, 512, 768, 1040])
+@pytest.mark.parametrize("N", [1, 7, 8, 33, 4099])
+@pytest.mark.parametrize("Q", [1, 5, 16, 17, 40])
+def test_scan_kernel_ragged_shapes_bit_exact(cuda_device, Q, N, D):
+    q, rows, pen = _int8_case(Q, N, D, cuda_device, Q * N + D)
+    got = S.int8_scan_scores(q, rows, pen)
+    torch.cuda.synchronize()
+    assert torch.equal(got, S.int8_scan_scores_plain(q, rows, pen))
+
+
+@pytest.mark.parametrize("N,D", [(40_953, 512), (1_001, 48), (40_960, 512)])
+def test_scan_kernel_rows_at_the_end_of_an_allocation(cuda_device, N, D):
+    """No load reads past the last row: the rows are the last bytes of a
+    20 MiB segment that the caching allocator takes from cudaMalloc for
+    this tensor alone (the cache emptied first), so a read past them would
+    leave the allocation."""
+    torch.cuda.empty_cache()
+    size = 20 << 20
+    buf = torch.empty(size, dtype=torch.int8, device=cuda_device)
+    q, rows, pen = _int8_case(16, N, D, cuda_device, N + D)
+    tail = buf[size - N * D:].view(N, D)
+    tail.copy_(rows)
+    got = S.int8_scan_scores(q, tail, pen)
+    torch.cuda.synchronize()
+    assert torch.equal(got, S.int8_scan_scores_plain(q, rows, pen))
+
+
+def test_int_mm_agrees_with_the_plain_scan(cuda_device):
+    """``torch._int_mm``, B2's yardstick in ``chip_smoke.py`` (cuBLASLt's
+    int8 product, exact int32), gives the plain scan's scores bit for bit
+    once transposed and added to the penalty."""
+    q, rows, pen = _int8_case(16, 100_003, 512, cuda_device, 3)
+    got = torch._int_mm(rows, q.t())
+    assert got.dtype == torch.int32 and got.shape == (100_003, 16)
+    assert torch.equal(got.t() + pen, S.int8_scan_scores_plain(q, rows, pen))
+
+
 def test_scan_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros(2, 24, dtype=torch.int8, device=cuda_device)
     rows = torch.zeros(8, 24, dtype=torch.int8, device=cuda_device)

@@ -23,7 +23,11 @@ numpy/torch, against the port's plain versions:
   interpret mode;
 - ``mma.sync.m16n8k32.s8`` and the int4 scan's (B3) load, biased unpack,
   fragment map and bias correction, bit for bit against the plain scan and
-  the JAX twin.
+  the JAX twin;
+- the int8 scan's (B2) loads, k order, fragments, masks of the ragged group
+  and of dims past the last whole chunk, and passes over the queries, bit
+  for bit against the plain scan and the JAX package's Pallas kernel in
+  interpret mode.
 """
 
 import jax.numpy as jnp
@@ -38,8 +42,12 @@ from retrieval_based_object_detection_tpu.ops.clip_attention import (
 from retrieval_based_object_detection_tpu.ops.int4_scan import (
     int4_scan_scores as jax_int4_scan,
 )
+from retrieval_based_object_detection_tpu.ops.int8_scan import (
+    int8_scan_scores as jax_int8_scan,
+)
 from retrieval_based_object_detection_tpu_torch.ops import clip_attention as CA
 from retrieval_based_object_detection_tpu_torch.ops import int4_scan as S4
+from retrieval_based_object_detection_tpu_torch.ops import int8_scan as S8
 from retrieval_based_object_detection_tpu_torch.ops import medoid as M
 
 LANES = np.arange(32)
@@ -921,21 +929,25 @@ def test_backward_shared_memory_budget():
 # --------------------------------------- B3: m16n8k32.s8 and the int4 scan --
 
 def mma_m16n8k32(a, b):
-    """PTX mma.m16n8k32 (s8): a [32, 4, 4], b [32, 2, 4] per-lane registers
-    of four signed bytes (lowest byte first) → c [32, 4] int32. A(16x32):
+    """PTX mma.m16n8k32 (s8): a [..., 32, 4, 4], b [..., 32, 2, 4] per-lane
+    registers of four signed bytes (lowest byte first) → c [..., 32, 4]
+    int32, one product per leading index (a warp each). A(16x32):
     a0 (gq, 4tq..+3), a1 (gq+8, 4tq..), a2 (gq, 16+4tq..), a3 (gq+8,
     16+4tq..). B(32x8): b0 (k 4tq..+3, n gq), b1 (k 16+4tq.., n gq).
     C(16x8) as the other shapes."""
-    A = np.zeros((16, 32), np.int64)
-    B = np.zeros((32, 8), np.int64)
+    A = np.zeros(a.shape[:-3] + (16, 32), np.int64)
+    B = np.zeros(b.shape[:-3] + (32, 8), np.int64)
     for i in range(4):
-        A[GQ, 4 * TQ + i], A[GQ + 8, 4 * TQ + i] = a[:, 0, i], a[:, 1, i]
-        A[GQ, 16 + 4 * TQ + i] = a[:, 2, i]
-        A[GQ + 8, 16 + 4 * TQ + i] = a[:, 3, i]
-        B[4 * TQ + i, GQ], B[16 + 4 * TQ + i, GQ] = b[:, 0, i], b[:, 1, i]
+        A[..., GQ, 4 * TQ + i] = a[..., 0, i]
+        A[..., GQ + 8, 4 * TQ + i] = a[..., 1, i]
+        A[..., GQ, 16 + 4 * TQ + i] = a[..., 2, i]
+        A[..., GQ + 8, 16 + 4 * TQ + i] = a[..., 3, i]
+        B[..., 4 * TQ + i, GQ] = b[..., 0, i]
+        B[..., 16 + 4 * TQ + i, GQ] = b[..., 1, i]
     C = A @ B
-    return np.stack([C[GQ, 2 * TQ], C[GQ, 2 * TQ + 1],
-                     C[GQ + 8, 2 * TQ], C[GQ + 8, 2 * TQ + 1]], axis=1)
+    return np.stack([C[..., GQ, 2 * TQ], C[..., GQ, 2 * TQ + 1],
+                     C[..., GQ + 8, 2 * TQ], C[..., GQ + 8, 2 * TQ + 1]],
+                    axis=-1)
 
 
 def _low_biased(w):
@@ -1098,3 +1110,149 @@ def test_int4_scan_shared_memory_budget():
     assert S4._smem_bytes(32) == 16 * (128 + 64) + 64 + 10_240
     assert S4._smem_bytes(160) == 16 * (256 + 64) + 64 + 10_240
     assert S4._smem_bytes(8192) <= S4.MAX_SMEM < S4._smem_bytes(16384)
+
+
+# ------------------------------------- B2: the int8 scan on m16n8k32.s8 --
+
+def emulate_int8_scan(q, rows, pen, blocks, piece=16, loads=8):
+    """``scan`` of int8_scan.cu lane by lane, with ``blocks`` blocks of 4
+    warps in x and one pass of 16 queries per block in y; ``piece`` is the
+    bytes a lane loads (``kPiece``), ``loads`` the chunks a step
+    (``kLoads``). The warps of a pass step together, each on its own
+    groups; a warp whose steps are done loads nothing."""
+    nq, dim = q.shape
+    n = rows.shape[0]
+    chunk = 4 * piece
+    nchunks = -(-dim // chunk)
+    ldq = -(-(nchunks * chunk) // 128) * 128 + chunk
+    assert ldq % 128 == chunk
+    if piece == 16:
+        assert 16 * ldq + 4 * 16 * 40 * 4 == S8._smem_bytes(dim)
+    out = np.full((nq, n), np.nan, np.float32)
+    ngroups = -(-n // 32)
+    nwarps = blocks * 4
+    nsteps = -(-nchunks // loads)
+    flat = rows.reshape(-1).view(np.uint8)
+    for q0 in range(0, nq, 16):
+        nqb = min(16, nq - q0)
+        qs = np.full((16, ldq), 0x5A, np.uint8)  # garbage where unwritten
+        row16 = (ldq - chunk) // 16
+        for i in range(16 * row16):
+            j, c = divmod(i, row16)
+            c *= 16
+            qs[j, c:c + 16] = q[q0 + j, c:c + 16].view(np.uint8) \
+                if j < nqb and c < dim else 0
+        first = np.arange(min(nwarps, ngroups))  # the warps that have groups
+        steps = -(-(ngroups - first) // nwarps) * 4 * nsteps
+        stage = np.full((len(first), 16, 40), -7, np.int64)
+        acc = np.zeros((len(first), 32, 4), np.int64)
+        for s in range(steps.max()):
+            live = s < steps
+            step, tile = s % nsteps, s // nsteps
+            grp, i = first + (tile // 4) * nwarps, tile % 4
+            r = grp[:, None] * 32 + i * 8 + GQ  # [warp, lane]
+            if step == 0:
+                acc[:] = 0
+            for j in range(loads):
+                c = step * loads + j
+                byte = c * chunk + TQ * piece
+                ok = live[:, None] & (r < n) & (byte < dim)
+                # No load reads past the end of its row or the last row.
+                assert (byte + piece <= dim)[ok.any(0)].all()
+                at = np.where(ok, r * dim + byte, 0)[..., None] \
+                    + np.arange(piece)
+                w = np.where(ok[..., None], flat[at], 0).astype(
+                    np.uint8).view("<u4")  # the load: warp, lane, word
+                if c >= nchunks:
+                    assert not w.any()
+                    continue
+                # A: the same bytes of queries gq and gq + 8.
+                qa = c * chunk + TQ * piece
+                wa, wb = (np.stack([qs[row[lane], qa[lane]:qa[lane] + piece]
+                                    for lane in range(32)]).view("<u4")
+                          for row in (GQ, GQ + 8))
+                for m in range(0, piece // 4, 2):
+                    a = np.stack([wa[:, m], wb[:, m], wa[:, m + 1],
+                                  wb[:, m + 1]], axis=1)
+                    b = np.stack([w[..., m], w[..., m + 1]], axis=-1)
+                    acc += np.where(live[:, None, None], mma_m16n8k32(
+                        _bytes_of(a), _bytes_of(b)), 0)
+            if step != nsteps - 1:
+                continue
+            ws = np.flatnonzero(live)[:, None]
+            for k in range(2):
+                stage[ws, GQ, i * 8 + 2 * TQ + k] = acc[live, :, k]
+                stage[ws, GQ + 8, i * 8 + 2 * TQ + k] = acc[live, :, 2 + k]
+            if i != 3:
+                continue
+            rr = grp[:, None] * 32 + LANES
+            mine = live[:, None] & (rr < n)
+            for j in range(nqb):
+                res = stage[:, j, LANES].astype(np.float32) \
+                    + pen[np.minimum(rr, n - 1)]
+                assert np.isnan(out[q0 + j, rr[mine]]).all()
+                out[q0 + j, rr[mine]] = res[mine]
+            stage[live] = -7
+    return out
+
+
+def _int8_case(nq, n, dim, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-127, 128, (nq, dim), dtype=np.int8)
+    rows = rng.integers(-127, 128, (n, dim), dtype=np.int8)
+    pen = np.where(rng.random(n) < 0.1, -1e30, 0.0).astype(np.float32)
+    return q, rows, pen
+
+
+@pytest.mark.parametrize("dim", [16, 48, 512, 768, 1040])
+@pytest.mark.parametrize("n", [1, 7, 8, 33, 4099])
+@pytest.mark.parametrize("nq", [1, 5, 16, 17, 40])
+def test_int8_scan_fragments_bit_exact_vs_plain(nq, n, dim):
+    """The scan's loads, k order, A/B fragments, staging and masks through
+    the PTX layout of m16n8k32: every score written exactly once and equal
+    bit for bit to the plain scan; a ragged last group, ``nq`` other than
+    16 (passes over y), dims that end inside a 64-byte chunk (16, 48, 1040)
+    or take more than one step a tile (768, 1040), and, at 4,099 rows,
+    warps that walk several groups."""
+    q, rows, pen = _int8_case(nq, n, dim, nq * n + dim)
+    got = emulate_int8_scan(q, rows, pen, blocks=2 if n > 100 else 1)
+    want = S8.int8_scan_scores_plain(*(torch.from_numpy(a) for a in (
+        q, rows, pen))).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("nq,n,dim,piece,loads", [
+    (17, 300, 512, 8, 8), (5, 99, 1040, 8, 4), (16, 70, 512, 16, 4),
+    (3, 260, 768, 16, 3)])
+def test_int8_scan_fragments_hold_for_other_pieces_and_steps(
+        nq, n, dim, piece, loads):
+    """The same index expressions with 8-byte pieces (``kPiece`` of the
+    ``int2`` variant) or fewer chunks a step (``kLoads``), as
+    ``csrc/variants.py`` builds them."""
+    q, rows, pen = _int8_case(nq, n, dim, n + dim)
+    got = emulate_int8_scan(q, rows, pen, blocks=1, piece=piece, loads=loads)
+    want = S8.int8_scan_scores_plain(*(torch.from_numpy(a) for a in (
+        q, rows, pen))).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("nq,n,dim", [(1, 7, 16), (17, 33, 48),
+                                      (16, 256, 512), (5, 8, 1040)])
+def test_int8_scan_fragments_bit_exact_vs_pallas_interpret(nq, n, dim):
+    q, rows, pen = _int8_case(nq, n, dim, n + dim)
+    got = emulate_int8_scan(q, rows, pen, blocks=2)
+    want = np.asarray(jax_int8_scan(*(jnp.asarray(a) for a in (
+        q, rows, pen)), tile_rows=n, interpret=True))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_int8_scan_shared_memory_budget():
+    """The wrapper's budget is the kernel's layout: 16 query rows padded to
+    64 dims and rounded up to 128 bytes, plus 64 bytes, and four 16 x 40
+    int32 stages. Every D that the exactness check lets through (up to
+    1,040) fits."""
+    assert S8._smem_bytes(512) == 16 * (512 + 64) + 10_240 == 19_456
+    assert S8._smem_bytes(48) == 16 * (128 + 64) + 10_240
+    assert S8._smem_bytes(576) == 16 * (640 + 64) + 10_240
+    assert S8._smem_bytes(1040) == 16 * (1152 + 64) + 10_240 == 29_696
+    assert S8._smem_bytes(1040) <= S8.MAX_SMEM
