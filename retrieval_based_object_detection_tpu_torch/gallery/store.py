@@ -37,6 +37,9 @@ from retrieval_based_object_detection_tpu_torch.gallery.schema import (
     PayloadColumns,
     _gc_paused,
 )
+from retrieval_based_object_detection_tpu_torch.utils import (
+    logging as tracer,
+)
 from retrieval_based_object_detection_tpu_torch.utils.platform import (
     resolve_device,
 )
@@ -1227,7 +1230,17 @@ class Gallery:
         capacity once the standard mirrors exceed CAPACITY_AUTO_BYTES,
         int8 on CUDA at ≥INT8_SCAN_MIN_ROWS rows, bf16 below. The
         quantised tiers serve cosine collections only.
+
+        While tracing, a call is a ``search.call`` span; on the
+        single-device routes it holds ``search.prep`` (mirrors, mask,
+        upload and the scan's launches), ``search.copy_back`` (the host's
+        wait for the top-k) and ``search.records``.
         """
+        with tracer.span("search.call"):
+            return self._search(queries, k, flt, exact, with_vectors,
+                                method)
+
+    def _search(self, queries, k, flt, exact, with_vectors, method):
         n = self._nrows
         if method is None:
             if self._gallery_mesh is not None:
@@ -1288,10 +1301,22 @@ class Gallery:
             # Own device residency (bf16 + int4 planes, no f32 mirror);
             # never touches _sync_mirrors.
             return self._capacity_search(queries, k, flt, with_vectors)
+        k_eff = min(k, n)
+        with tracer.span("search.prep"):
+            scores, idx = self._scan(queries, k_eff, flt, method)
+        with tracer.span("search.copy_back"):
+            scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+        with tracer.span("search.records"):
+            return self._rows_to_records(scores, idx, k_eff, with_vectors)
+
+    def _scan(self, queries: np.ndarray, k_eff: int, flt: Filter | None,
+              method: str) -> tuple[torch.Tensor, torch.Tensor]:
+        """The single-device routes up to the top-k on the device: the
+        mirrors synced, the filter's mask, the upload and the scan's
+        launches → (scores, rows), still on the device."""
         self._sync_mirrors(f32=(method in ("exact", "int8", "int4")),
                            bf16=(method == "bf16"), i8=(method == "int8"))
         mask = self._device_mask(flt)
-        k_eff = min(k, n)
         q = upload(queries, self.device)  # may be a read-only request buffer
         if method == "int4":
             rescore = min(max(8 * k_eff, 256), self._padded)
@@ -1321,8 +1346,7 @@ class Gallery:
             scores, idx = search_lib.masked_metric_topk(
                 q, g, mask, k=k_eff, distance=self.distance,
                 exact=(method == "exact"))
-        return self._rows_to_records(scores.cpu().numpy(),
-                                     idx.cpu().numpy(), k_eff, with_vectors)
+        return scores, idx
 
     # ------------------------------------------------------------ export
     def to_arrays(self) -> dict[str, Any]:
