@@ -392,7 +392,7 @@ def _apply_deltas(g: Gallery, snap_id: str | None,
                 cols = PayloadColumns.import_columns(meta["columns"],
                                                      len(ids))
                 g.upsert(ids, vectors[: len(ids)],
-                         [cols.get_row(i) for i in range(len(ids))])
+                         cols.get_rows(np.arange(len(ids))))
             if meta.get("deleted"):
                 g.delete(ids=meta["deleted"])
         expected = seq + 1
@@ -560,7 +560,7 @@ def _replay_delta_fast(g: Gallery, meta: dict, vectors: np.ndarray) -> None:
                         else g._ids_arr.astype(f"S{w}"))
                 g._ids_arr = np.concatenate([base, tail])
         cols = PayloadColumns.import_columns(meta["columns"], len(ids))
-        pls = [cols.get_row(i) for i in range(len(ids))]
+        pls = cols.get_rows(np.arange(len(ids)))
         g._vectors[rows] = vectors[: len(ids)]
         g._payloads.set_rows(rows, pls)  # lazy-safe (pending overlay)
     g._mask_cache.clear()

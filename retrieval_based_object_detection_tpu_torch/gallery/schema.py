@@ -125,6 +125,27 @@ class Payload:
         )
 
 
+def _payload_of(data_type, class_name, img_path, is_cropped, is_segmented,
+                is_augmented, is_delegate, delegate_type) -> Payload:
+    """A ``Payload`` from already decoded values, its fields written
+    straight into the instance dict: the frozen dataclass's ``__init__``
+    pays an ``object.__setattr__`` per field, about 2.6 µs a payload on
+    a CPython 3.12 host, or 0.4 ms of a search call that returns 160 hits.
+    The result is an ordinary ``Payload`` (equal, hash-equal and frozen
+    alike)."""
+    p = object.__new__(Payload)
+    d = p.__dict__
+    d["data_type"] = data_type
+    d["class_name"] = class_name
+    d["img_path"] = img_path
+    d["is_cropped"] = is_cropped
+    d["is_segmented"] = is_segmented
+    d["is_augmented"] = is_augmented
+    d["is_delegate"] = is_delegate
+    d["delegate_type"] = delegate_type
+    return p
+
+
 @dataclass(frozen=True)
 class Filter:
     """Conjunction of exact-match conditions: ``{field: value}``.
@@ -426,20 +447,32 @@ class PayloadColumns:
         self.size = max(self.size, max_row + 1)
 
     def get_row(self, row: int) -> Payload:
-        kw: dict[str, Any] = {}
-        for f in self._CODED:
-            code = int(self._cols[f][row])
-            kw[f] = self._decode[f][code] if code >= 0 else None
-        for f in BOOL_FIELDS:
-            kw[f] = bool(self._cols[f][row])
+        return self.get_rows([row])[0]
+
+    def get_rows(self, rows) -> list[Payload]:
+        """The payloads of ``rows`` (any int sequence or array), in order:
+        one gather of each column for all of them."""
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = self._cols
+
+        def decoded(f: str) -> list:
+            table = self._decode[f]
+            return [table[c] if c >= 0 else None
+                    for c in cols[f][rows].tolist()]
+
         if self._paths_lazy is not None:
-            # Per-row slice off the lazy blob: materialising search/
+            # Per-row slices off the lazy blob: materialising search/
             # retrieve RESULTS must not pay the full path-index build
             # (~20 s at 10M rows right after a restart).
-            kw["img_path"] = self._row_path_lazy(row) or ""
+            paths = [self._row_path_lazy(r) or "" for r in rows.tolist()]
         else:
-            kw["img_path"] = self._img_path[row] or ""
-        return Payload(**kw)
+            paths = [p or "" for p in self._img_path[rows].tolist()]
+        return list(map(
+            _payload_of, decoded("data_type"), decoded("class_name"), paths,
+            cols["is_cropped"][rows].tolist(),
+            cols["is_segmented"][rows].tolist(),
+            cols["is_augmented"][rows].tolist(),
+            cols["is_delegate"][rows].tolist(), decoded("delegate_type")))
 
     def row_by_path(self, img_path: str) -> int | None:
         self._ensure_paths()

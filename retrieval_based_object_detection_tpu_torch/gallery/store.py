@@ -247,7 +247,7 @@ class Gallery:
                     built = ([b.decode("utf-8") for b in arr.tolist()]
                              if arr is not None else [])
                 # Publish the list BEFORE dropping the raw table, so
-                # concurrent _id_at readers see one or the other.
+                # concurrent _ids_at readers see one or the other.
                 self._ids_list = built
                 self._ids_arr = None
         return self._ids_list
@@ -260,15 +260,19 @@ class Gallery:
         self._ids_order = None
 
     def _id_at(self, row: int) -> str:
-        """One row's id without materialising the full str list (search
-        and retrieve results decode only the rows they return)."""
+        return self._ids_at([row])[0]
+
+    def _ids_at(self, rows: list[int]) -> list[str]:
+        """The ids of ``rows`` without materialising the full str list
+        (search and retrieve results decode only the rows they return):
+        one gather of a lazily loaded raw table, else list reads."""
         lst = self._ids_list
-        if lst is not None:
-            return lst[row]
-        arr = self._ids_arr
-        if arr is None:  # materialised between the checks — re-read
-            return self._ids[row]
-        return arr[row].decode("utf-8")
+        if lst is None:
+            arr = self._ids_arr
+            if arr is not None:
+                return [b.decode("utf-8") for b in arr[rows].tolist()]
+            lst = self._ids  # materialised between the checks
+        return [lst[r] for r in rows]
 
     def _row_of(self, pid: str) -> int | None:
         """Read-only id -> live row lookup. Prefers the materialised dict;
@@ -621,34 +625,30 @@ class Gallery:
         return reclaimed
 
     # ------------------------------------------------------------ reads
-    def _records(self, rows: np.ndarray, with_vectors: bool) -> list[Record]:
+    def _records(self, rows, with_vectors: bool,
+                 scores: list[float] | None = None) -> list[Record]:
+        """The Records of ``rows`` (any int sequence or array), in order,
+        with ``scores`` beside them when given: ids, payloads and vectors
+        each read in bulk. The vectors are one gather, never views of the
+        store's memory."""
+        rows = np.asarray(rows, dtype=np.int64)
         if len(rows) > 65536:
             _ = self._ids                   # bulk: one decode pass,
             self._payloads._ensure_paths()  # one split — beats per-row
-        return [
-            Record(
-                id=self._id_at(int(r)),
-                payload=self._payloads.get_row(int(r)),
-                vector=self._vectors[r].copy() if with_vectors else None,
-            )
-            for r in rows
-        ]
+        ids = self._ids_at(rows.tolist())
+        nothing = [None] * len(ids)
+        return list(map(
+            Record, ids, self._payloads.get_rows(rows),
+            list(self._vectors[rows]) if with_vectors else nothing,
+            nothing if scores is None else scores))
 
     def retrieve(self, ids: Sequence[str], with_vectors: bool = True
                  ) -> list[Record]:
         """Records of the given ids, in order; unknown or deleted ids are
         skipped."""
-        out = []
-        for pid in ids:
-            row = self._row_of(pid)  # lazy-probe friendly (restart path)
-            if row is None:
-                continue
-            out.append(Record(
-                id=pid,
-                payload=self._payloads.get_row(row),
-                vector=self._vectors[row].copy() if with_vectors else None,
-            ))
-        return out
+        # _row_of probes a lazily loaded id table (the restart path).
+        rows = [row for row in map(self._row_of, ids) if row is not None]
+        return self._records(rows, with_vectors)
 
     def get_by_path(self, img_path: str, with_vectors: bool = True
                     ) -> Record | None:
@@ -664,11 +664,7 @@ class Gallery:
             row = self._resolved_row(img_path)
         if row is None:
             return None
-        return Record(
-            id=self._id_at(row),
-            payload=self._payloads.get_row(row),
-            vector=self._vectors[row].copy() if with_vectors else None,
-        )
+        return self._records([row], with_vectors)[0]
 
     @staticmethod
     def _resolve_key(p: str) -> str:
@@ -1181,24 +1177,19 @@ class Gallery:
     def _rows_to_records(self, scores: np.ndarray, idx: np.ndarray,
                          k_eff: int, with_vectors: bool
                          ) -> list[list[Record]]:
-        """Per-query Record hit lists from top-k scores/rows; a NEG_INF
-        score ends a query's hits (fewer matches than k). Shared by the
-        mirror and capacity tiers."""
-        results: list[list[Record]] = []
-        for qi in range(scores.shape[0]):
-            hits = []
-            for j in range(min(k_eff, scores.shape[1])):
-                if scores[qi, j] <= search_lib.NEG_INF / 2:
-                    break
-                row = int(idx[qi, j])
-                hits.append(Record(
-                    id=self._id_at(row),
-                    payload=self._payloads.get_row(row),
-                    vector=self._vectors[row].copy()
-                    if with_vectors else None,
-                    score=float(scores[qi, j]),
-                ))
-            results.append(hits)
+        """Per-query Record hit lists from top-k scores/rows; a query's
+        first NEG_INF score ends its hits (fewer matches than k). Shared
+        by every search route; the hits of all queries are built in one
+        ``_records`` call."""
+        k = min(k_eff, scores.shape[1])
+        scores, idx = scores[:, :k], idx[:, :k]
+        keep = np.logical_and.accumulate(
+            ~(scores <= search_lib.NEG_INF / 2), axis=1)
+        hits = self._records(idx[keep], with_vectors, scores[keep].tolist())
+        results, lo = [], 0
+        for n in keep.sum(axis=1).tolist():
+            results.append(hits[lo:lo + n])
+            lo += n
         return results
 
     def search(
@@ -1355,8 +1346,8 @@ class Gallery:
         return {
             "ids": list(self._ids),
             "vectors": self._vectors[:n].copy(),
-            "payloads": [self._payloads.get_row(i).to_dict()
-                         for i in range(n)],
+            "payloads": [p.to_dict()
+                         for p in self._payloads.get_rows(np.arange(n))],
             "dim": self.dim,
             "distance": self.distance,
         }
