@@ -14,7 +14,9 @@ Tiers:
     exact cosine tier: the caller keeps TF32 off.
   * ``int8_scan_topk`` — the int8 scan (kernel B2 on CUDA) → top
     ``rescore`` candidates → exact f32 rescore. ``int8_cosine_topk`` is its
-    exact twin over a plain integer matmul.
+    exact twin over a plain integer matmul. ``Int8ScanGraphs`` serves it on
+    CUDA: the chain captured once per card and query bucket as a CUDA graph
+    and replayed.
   * ``int4_scan_topk`` — the same over rows packed two 4-bit dims per byte
     with a per-row scale (``pack_rows_int4``; kernel B3 on CUDA): half the
     int8 scan's bytes, and a top-k set that is approximate at the margin.
@@ -27,6 +29,11 @@ or id sets.
 
 from __future__ import annotations
 
+import collections
+import threading
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from retrieval_based_object_detection_tpu_torch.ops.int4_scan import (
@@ -34,8 +41,12 @@ from retrieval_based_object_detection_tpu_torch.ops.int4_scan import (
     int4_scan_scores_plain,
 )
 from retrieval_based_object_detection_tpu_torch.ops.int8_scan import (
+    KERNEL as B2,
     int8_scan_scores,
     int8_scan_scores_plain,
+)
+from retrieval_based_object_detection_tpu_torch.utils import (
+    logging as tracer,
 )
 
 NEG_INF = -1e30
@@ -151,18 +162,40 @@ def quantize_rows_int8(normalized_rows: torch.Tensor) -> torch.Tensor:
                        ).to(torch.int8)
 
 
-def _rescore(qn, gallery_rows, cand_s, cand_i, k, live):
-    """Rescore the candidates against ``gallery_rows`` (f32, or the
-    capacity tier's bf16 mirror) and keep the best ``k``. bf16 rows meet a
-    bf16-rounded query, multiplied in f32 with f32 scores, as JAX's
-    ``preferred_element_type=jnp.float32`` does: a torch bf16 einsum would
-    round the scores themselves to bf16."""
+def _rescored(qn, gallery_rows, cand_i, live):
+    """[Q, r] exact f32 scores of the candidates against ``gallery_rows``
+    (f32, or the capacity tier's bf16 mirror), NEG_INF where not ``live``.
+    bf16 rows meet a bf16-rounded query, multiplied in f32 with f32 scores,
+    as JAX's ``preferred_element_type=jnp.float32`` does: a torch bf16
+    einsum would round the scores themselves to bf16."""
     rows = gallery_rows[cand_i]  # [Q, r, D]
     q = qn.to(rows.dtype).to(torch.float32)
     exact = torch.einsum("qd,qrd->qr", q, rows.to(torch.float32))
-    exact = torch.where(live, exact, NEG_INF)
+    return torch.where(live, exact, NEG_INF)
+
+
+def _best(exact, cand_i, k):
+    """The best ``k`` of rescored candidates → (scores, rows)."""
     best_s, pos = torch.topk(exact, k, dim=1)
     return best_s, torch.gather(cand_i, 1, pos)
+
+
+def _rescore(qn, gallery_rows, cand_s, cand_i, k, live):
+    """Rescore the candidates (``_rescored``) and keep the best ``k``."""
+    return _best(_rescored(qn, gallery_rows, cand_i, live), cand_i, k)
+
+
+def _int8_candidates(queries, gallery_i8, gallery_f32, mask, rescore):
+    """``int8_scan_topk`` up to its last selection: the top ``rescore``
+    rows by int8 score (kernel B2, in-kernel filter penalty), rescored
+    exactly → (exact scores [Q, r], rows [Q, r])."""
+    N = gallery_f32.shape[0]
+    qn = l2_normalize(queries)
+    q_i8 = quantize_rows_int8(qn)
+    penalty = torch.where(mask, 0.0, NEG_INF).to(torch.float32)
+    scores = int8_scan_scores(q_i8, gallery_i8, penalty)
+    cand_s, cand_i = torch.topk(scores, min(rescore, N), dim=1)
+    return _rescored(qn, gallery_f32, cand_i, cand_s > NEG_INF / 2), cand_i
 
 
 def int8_scan_topk(
@@ -175,14 +208,217 @@ def int8_scan_topk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Million-row serving scan: int8 scores (kernel B2, in-kernel filter
     penalty) → top-``rescore`` candidates → exact f32 rescore."""
-    N = gallery_f32.shape[0]
-    qn = l2_normalize(queries)
-    q_i8 = quantize_rows_int8(qn)
-    penalty = torch.where(mask, 0.0, NEG_INF).to(torch.float32)
-    scores = int8_scan_scores(q_i8, gallery_i8, penalty)
-    cand_s, cand_i = torch.topk(scores, min(rescore, N), dim=1)
-    return _rescore(qn, gallery_f32, cand_s, cand_i, k,
-                    cand_s > NEG_INF / 2)
+    return _best(*_int8_candidates(queries, gallery_i8, gallery_f32, mask,
+                                   rescore), k)
+
+
+# The query counts the int8 chain is captured for. A call's queries go into
+# the first of these that holds them (the rows past them are left over from
+# earlier calls: each query row's results depend on that row alone), so a
+# card holds at most this many graphs per pair of mirrors, whatever shapes
+# the callers send. More queries, or more candidates than
+# GRAPH_MAX_RESCORE (k > 32 at the gallery's 8k rule), run eagerly.
+GRAPH_QUERIES = (1, 2, 4, 8, 16, 32, 64)
+GRAPH_MAX_RESCORE = 256
+
+# CUDA captures one graph at a time in a process.
+_CAPTURE_LOCK = threading.Lock()
+
+
+@dataclass
+class _Int8Graph:
+    """One captured chain: the graph, its static inputs and outputs on the
+    card, the B2 launches it recorded, and the mirrors it reads (held, so
+    that they outlive it)."""
+
+    graph: torch.cuda.CUDAGraph
+    queries: torch.Tensor   # [bucket, D] f32
+    mask: torch.Tensor      # [N] bool
+    exact: torch.Tensor     # [bucket, r] f32, the rescored candidates
+    rows: torch.Tensor      # [bucket, r] int64
+    recorded: dict
+    mirrors: tuple
+
+
+@dataclass
+class _Card:
+    """What one card's graphs share: their memory pool, and the lock that
+    keeps their replays from interleaving."""
+
+    pool: tuple
+    lock: threading.Lock
+
+
+class Int8ScanGraphs:
+    """``int8_scan_topk`` on CUDA as CUDA graphs, one per card and query
+    bucket (``GRAPH_QUERIES``).
+
+    The eager chain is ~36 small launches from the host (normalise,
+    quantise, penalty, B2, the candidates' radix select, the rescore); a
+    replay is one. A call copies its queries and row mask into the graph's
+    static inputs, replays it, and takes the best ``k`` of the static
+    rescored candidates eagerly (two launches), so ``k`` is no part of the
+    graph. The first call of a bucket runs the chain eagerly on a side
+    stream over the filled inputs (its answer is the call's) and then
+    captures it there. Results are bit for bit the eager chain's over the
+    same bucket of queries: the same kernels run in the same order.
+
+    An owner of int8 and f32 mirrors (the ``Gallery``, a sharded view) keeps
+    one and calls ``clear`` wherever it rebuilds them. Entries are keyed on
+    the card, the bucket, ``D``, ``N``, ``rescore`` and the mirrors' data
+    pointers, and hold the mirrors, so that nothing a graph reads is freed
+    under it; in-place patches keep the pointers, so replays see writes as
+    eager calls do. A card keeps at most ``len(GRAPH_QUERIES)`` entries, the
+    least recently used dropped first: one per bucket over the owner's
+    mirrors, so that no traffic makes it capture again and again.
+
+    A card's graphs share one memory pool (its scratch is the largest
+    chain's, not the sum), so one's scratch may be another's output: a lock
+    per card covers filling the inputs, the replay and the selection, which
+    go in that order on the calling thread's current stream (the card's
+    default stream in the gallery).
+
+    ``search.int8.graph_captures`` and ``search.int8.graph_replays`` count
+    captures and replays in the tracer's counters; B2's ``launches`` counts
+    its runs, a replay's too. On other devices ``topk`` runs the eager
+    chain."""
+
+    def __init__(self):
+        self._entries: dict[torch.device,
+                            collections.OrderedDict[tuple, _Int8Graph]] = {}
+        self._cards: dict[torch.device, _Card] = {}
+        self._lock = threading.Lock()  # the two dicts
+
+    @staticmethod
+    def bucket(q: int) -> int | None:
+        """The captured query count that holds ``q`` queries, if any."""
+        return next((b for b in GRAPH_QUERIES if b >= q), None)
+
+    @staticmethod
+    def key(bucket: int, gallery_i8: torch.Tensor,
+            gallery_f32: torch.Tensor, rescore: int) -> tuple:
+        n, d = gallery_f32.shape
+        return (gallery_f32.device, bucket, d, n, rescore,
+                gallery_i8.data_ptr(), gallery_f32.data_ptr())
+
+    @staticmethod
+    def stage(queries: np.ndarray, device: torch.device) -> torch.Tensor:
+        """Host queries as an f32 tensor, pinned for a card, so that each
+        copy to a card waits for nothing (the host allocator keeps the
+        block until the copies have run)."""
+        host = torch.from_numpy(np.array(queries, np.float32))
+        return host.pin_memory() if device.type == "cuda" else host
+
+    def __len__(self) -> int:
+        with self._lock:
+            return sum(map(len, self._entries.values()))
+
+    def clear(self) -> None:
+        """Drop every entry (a call in flight keeps its own)."""
+        with self._lock:
+            self._entries.clear()
+
+    def _get(self, device, key) -> _Int8Graph | None:
+        with self._lock:
+            entries = self._entries.get(device)
+            entry = None if entries is None else entries.get(key)
+            if entry is not None:
+                entries.move_to_end(key)
+            return entry
+
+    def _put(self, device, key, entry) -> None:
+        """Keep ``entry``; the card's least recently used beyond
+        ``len(GRAPH_QUERIES)`` go."""
+        with self._lock:
+            entries = self._entries.setdefault(device,
+                                               collections.OrderedDict())
+            entries[key] = entry
+            while len(entries) > len(GRAPH_QUERIES):
+                entries.popitem(last=False)
+
+    def _card(self, device: torch.device) -> _Card:
+        with self._lock:
+            card = self._cards.get(device)
+            if card is None:
+                card = self._cards[device] = _Card(
+                    torch.cuda.graph_pool_handle(), threading.Lock())
+            return card
+
+    def topk(
+        self,
+        queries,                    # [Q, D] host: an array, or ``stage``'s
+        gallery_i8: torch.Tensor,   # [N, D] int8 of normalised rows
+        gallery_f32: torch.Tensor,  # [N, D] normalised f32
+        mask: torch.Tensor,         # [N] bool
+        k: int,
+        rescore: int = 256,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``int8_scan_topk`` of host ``queries`` over one card's mirrors
+        → (scores [Q, k], rows [Q, k]) on the mirrors' device, the
+        caller's to keep."""
+        dev = gallery_f32.device
+        if isinstance(queries, np.ndarray):
+            queries = self.stage(queries, dev)
+        q = queries.shape[0]
+        bucket = self.bucket(q)
+        if dev.type != "cuda" or q == 0 or bucket is None \
+                or rescore > GRAPH_MAX_RESCORE:
+            return int8_scan_topk(queries.to(dev), gallery_i8, gallery_f32,
+                                  mask, k=k, rescore=rescore)
+        key = self.key(bucket, gallery_i8, gallery_f32, rescore)
+        card = self._card(dev)
+        with torch.cuda.device(dev), card.lock:
+            g = self._get(dev, key)
+            if g is None:
+                g, exact, rows = self._capture(
+                    queries, bucket, gallery_i8, gallery_f32, mask, rescore,
+                    card.pool)
+                self._put(dev, key, g)
+            else:
+                g.queries[:q].copy_(queries, non_blocking=True)
+                g.mask.copy_(mask)
+                g.graph.replay()
+                B2.replayed(g.recorded)
+                tracer.count("search.int8.graph_replays")
+                exact, rows = g.exact, g.rows
+            return _best(exact[:q], rows[:q], k)
+
+    @staticmethod
+    def _capture(queries: torch.Tensor, bucket: int,
+                 gallery_i8: torch.Tensor, gallery_f32: torch.Tensor,
+                 mask: torch.Tensor, rescore: int, pool: tuple):
+        """The first call of a bucket on the current card: fill new static
+        inputs, run the chain over them on a side stream (the kernels' lazy
+        set-up happens outside the capture, and its answer is this call's),
+        then capture it on that stream → (entry, exact, rows)."""
+        dev = gallery_f32.device
+        static_q = torch.zeros((bucket, queries.shape[1]),
+                               dtype=torch.float32, device=dev)
+        static_q[:queries.shape[0]].copy_(queries, non_blocking=True)
+        static_mask = mask.clone()
+        current = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK:
+            with torch.cuda.stream(side):
+                exact, rows = _int8_candidates(static_q, gallery_i8,
+                                               gallery_f32, static_mask,
+                                               rescore)
+            before = dict(B2.recorded)
+            # thread_local: other threads go on launching on their streams.
+            with torch.cuda.graph(graph, pool=pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                out = _int8_candidates(static_q, gallery_i8, gallery_f32,
+                                       static_mask, rescore)
+            recorded = {fn: n - before.get(fn, 0)
+                        for fn, n in B2.recorded.items()}
+        current.wait_stream(side)
+        for t in (exact, rows):
+            t.record_stream(current)
+        tracer.count("search.int8.graph_captures")
+        return (_Int8Graph(graph, static_q, static_mask, *out, recorded,
+                           (gallery_i8, gallery_f32)), exact, rows)
 
 
 def int8_cosine_topk(

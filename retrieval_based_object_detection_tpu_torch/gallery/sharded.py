@@ -9,9 +9,10 @@ first shard's device for one merge: the [Q, N] score matrix never leaves its
 shard, so the traffic is O(shards × k) per query batch.
 
 The port of the JAX package's ``gallery/sharded.py``. Its single-controller
-``shard_map`` becomes a loop over the shards, one launch of the scan kernel
-per shard per search, each on its shard's device and that device's current
-stream; its ``all_gather`` becomes the copy to the first shard. Exactness:
+``shard_map`` becomes a loop over the shards, one scan per shard per
+search, each on its shard's device and that device's current stream (the
+int8 tier's whole chain as one replay of a CUDA graph on each card); its
+``all_gather`` becomes the copy to the first shard. Exactness:
 cosine top-k over the union of shards equals single-device top-k, with ties
 broken by shard order as ``lax.top_k`` breaks them (a stable sort).
 """
@@ -144,21 +145,27 @@ def sharded_topk(
 
 
 def sharded_int8_topk(
-    queries: torch.Tensor,            # [Q, D] unnormalised f32
+    queries: np.ndarray,              # [Q, D] unnormalised, host
     gallery_i8: list[torch.Tensor],   # per shard [R, D] int8
     gallery_f32: list[torch.Tensor],  # per shard [R, D] rows to rescore
     mask: list[torch.Tensor],         # per shard [R] bool
     mesh,
     k: int,
     rescore: int = 256,
+    *,
+    graphs: search_lib.Int8ScanGraphs,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The int8 scan (kernel B2 on CUDA, one launch per shard) and exact
-    f32 rescore on each shard, then the merge."""
+    """The int8 scan (kernel B2 on CUDA) and exact f32 rescore on each
+    shard, then the merge. On CUDA each shard's chain is one replay of its
+    graph in ``graphs``; all are launched before the merge, so the cards
+    work at once."""
     _check_shards(mesh, gallery_f32)
-    scores, idx = _per_shard(
-        queries, list(zip(gallery_i8, gallery_f32, mask)),
-        lambda q, gi, gf, m: search_lib.int8_scan_topk(
-            q, gi, gf, m, k=k, rescore=rescore))
+    host = graphs.stage(queries, gallery_f32[0].device)  # pinned once
+    scores, idx = [], []
+    for gi, gf, m in zip(gallery_i8, gallery_f32, mask):
+        sc, ix = graphs.topk(host, gi, gf, m, k=k, rescore=rescore)
+        scores.append(sc)
+        idx.append(ix)
     return _gather_merge(scores, idx, gallery_f32[0].shape[0], k)
 
 
@@ -214,6 +221,8 @@ class ShardedGallerySearcher:
         self.rows_per = shard_rows(self.n_rows + max(0, headroom), n_shards)
         self.total = self.rows_per * n_shards
         self._dev_int8: list[torch.Tensor] | None = None  # int8 scan mirror
+        # The int8 tier's chain as CUDA graphs, a few buckets per card.
+        self._int8_graphs = search_lib.Int8ScanGraphs()
         # int4 tier: per shard (packed [R, D/2] int8, scales [R] f32)
         self._dev_int4: list[tuple[torch.Tensor, torch.Tensor]] | None = None
         if capacity:
@@ -274,6 +283,7 @@ class ShardedGallerySearcher:
         exact-integer scores depend on the two matching bit for bit. In
         capacity mode the source rows are bf16, so the int8 tier is then
         approximate at bf16 fidelity."""
+        self._int8_graphs.clear()
         self._dev_int8 = [search_lib.quantize_rows_int8(v)
                           for v in self.dev_vectors]
 
@@ -448,20 +458,22 @@ class ShardedGallerySearcher:
         # Each shard takes its own top-k, so k must fit one shard.
         per_shard = self.rows_per
         k_eff = min(k, self.n_rows, per_shard)
-        q = upload(queries, self.devices[0])
         rescore = min(max(8 * k_eff, 256), per_shard)
         self.ensure_mirror(method)
         if method == "int8":
+            # The host queries go straight into each card's graph input.
             scores, idx = sharded_int8_topk(
-                q, self._dev_int8, self.dev_vectors, mask, self.mesh,
-                k=k_eff, rescore=rescore)
-        elif method == "int4":
-            scores, idx = sharded_int4_topk(
-                q, [p for p, _ in self._dev_int4],
-                [s for _, s in self._dev_int4], self.dev_vectors, mask,
-                self.mesh, k=k_eff, rescore=rescore)
+                queries, self._dev_int8, self.dev_vectors, mask, self.mesh,
+                k=k_eff, rescore=rescore, graphs=self._int8_graphs)
         else:
-            scores, idx = sharded_topk(
-                q, self.dev_vectors, mask, self.mesh, k=k_eff,
-                exact=(method == "exact"))
+            q = upload(queries, self.devices[0])
+            if method == "int4":
+                scores, idx = sharded_int4_topk(
+                    q, [p for p, _ in self._dev_int4],
+                    [s for _, s in self._dev_int4], self.dev_vectors, mask,
+                    self.mesh, k=k_eff, rescore=rescore)
+            else:
+                scores, idx = sharded_topk(
+                    q, self.dev_vectors, mask, self.mesh, k=k_eff,
+                    exact=(method == "exact"))
         return scores.cpu().numpy(), idx.cpu().numpy()

@@ -199,6 +199,9 @@ class Gallery:
         self._dirty_hi = 0
         # Device filter masks keyed by canonical filter; cleared on writes.
         self._mask_cache: dict[Any, torch.Tensor] = {}
+        # The int8 tier's chain as CUDA graphs over the mirrors above;
+        # cleared wherever the mirrors are rebuilt.
+        self._int8_graphs = search_lib.Int8ScanGraphs()
         # Capacity serving tier (method="capacity", auto past
         # CAPACITY_AUTO_BYTES): a lazily built WRITABLE CapacitySearcher
         # kept in sync through the pending-op log (row sets from upserts,
@@ -811,6 +814,7 @@ class Gallery:
         self._padded = 0
         self._dev_f32 = self._dev_bf16 = self._dev_int8 = None
         self._dev_int4 = None
+        self._int8_graphs.clear()
         self._synced = 0
         self._dirty_lo = self._dirty_hi = 0
         self._mask_cache.clear()
@@ -864,6 +868,7 @@ class Gallery:
             self._padded = search_lib.pad_rows(max(n, 2 * self._padded))
             self._dev_f32 = self._dev_bf16 = self._dev_int8 = None
             self._dev_int4 = None
+            self._int8_graphs.clear()
             self._mask_cache.clear()
         # The int8 tier rescores from the f32 mirror, so i8 implies f32.
         if ((f32 or i8) and self._dev_f32 is None) or (
@@ -1227,8 +1232,9 @@ class Gallery:
 
         While tracing, a call is a ``search.call`` span; on the
         single-device routes it holds ``search.prep`` (mirrors, mask,
-        upload and the scan's launches), ``search.copy_back`` (the host's
-        wait for the top-k) and ``search.records``.
+        upload and the scan's launches; on the int8 tier on CUDA, one
+        replay of its graph), ``search.copy_back`` (the host's wait for the
+        top-k) and ``search.records``.
         """
         with tracer.span("search.call"):
             return self._search(queries, k, flt, exact, with_vectors,
@@ -1311,6 +1317,12 @@ class Gallery:
         self._sync_mirrors(f32=(method in ("exact", "int8", "int4")),
                            bf16=(method == "bf16"), i8=(method == "int8"))
         mask = self._device_mask(flt)
+        if method == "int8":
+            # The queries go straight into the graph's input on CUDA.
+            rescore = min(max(8 * k_eff, 256), self._padded)
+            return self._int8_graphs.topk(
+                queries, self._dev_int8, self._dev_f32, mask, k=k_eff,
+                rescore=rescore)
         q = upload(queries, self.device)  # may be a read-only request buffer
         if method == "int4":
             rescore = min(max(8 * k_eff, 256), self._padded)
@@ -1324,11 +1336,6 @@ class Gallery:
             packed, scales = self._dev_int4
             scores, idx = search_lib.int4_scan_topk(
                 q, packed, scales, self._dev_f32, mask, k=k_eff,
-                rescore=rescore)
-        elif method == "int8":
-            rescore = min(max(8 * k_eff, 256), self._padded)
-            scores, idx = search_lib.int8_scan_topk(
-                q, self._dev_int8, self._dev_f32, mask, k=k_eff,
                 rescore=rescore)
         elif self.distance == "cosine":
             g = self._dev_f32 if method == "exact" else self._dev_bf16

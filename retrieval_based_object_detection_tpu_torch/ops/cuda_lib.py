@@ -24,6 +24,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,9 +49,12 @@ class CudaLibrary:
     ``functions`` maps each exported C function to its ctypes argument
     types (pointers and the stream as ``c_void_p``: a bare Python int
     would be passed as a 32-bit int and cut the pointer). ``launches``
-    counts successful launches through :meth:`launch` and nothing else;
+    counts the kernel's runs: successful launches through :meth:`launch`,
+    and the replays of CUDA graphs that recorded them (:meth:`replayed`);
     ``counts`` splits them by exported function, for sources that hold
-    more than one kernel. :meth:`reset_counts` zeroes both.
+    more than one kernel. A launch made while the current stream captures
+    a graph runs at the graph's replays, not then: ``recorded`` counts it.
+    :meth:`reset_counts` zeroes all three.
     """
 
     def __init__(self, name: str, functions: dict[str, list]):
@@ -58,6 +63,7 @@ class CudaLibrary:
         self.functions = functions
         self.launches = 0
         self.counts = dict.fromkeys(functions, 0)
+        self.recorded = dict.fromkeys(functions, 0)
         self._lib: ctypes.CDLL | None = None
         self._lock = threading.Lock()
 
@@ -111,18 +117,31 @@ class CudaLibrary:
     def launch(self, fn: str, *args) -> None:
         """Call one exported launcher; raise on a CUDA error, else count."""
         lib = self.load()
+        capturing = torch.cuda.is_current_stream_capturing()
         rc = getattr(lib, fn)(*args)
         if rc != 0:
             msg = lib.kernel_error_string(rc).decode()
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc}: {msg}")
         with self._lock:
-            self.launches += 1
-            self.counts[fn] += 1
+            if capturing:
+                self.recorded[fn] += 1
+            else:
+                self.launches += 1
+                self.counts[fn] += 1
+
+    def replayed(self, recorded: dict[str, int]) -> None:
+        """Count the runs of one replay of a graph that recorded
+        ``recorded`` launches (function → launches)."""
+        with self._lock:
+            for fn, n in recorded.items():
+                self.launches += n
+                self.counts[fn] += n
 
     def reset_counts(self) -> None:
         with self._lock:
             self.launches = 0
             self.counts = dict.fromkeys(self.functions, 0)
+            self.recorded = dict.fromkeys(self.functions, 0)
 
 
 def build_all(libraries: list[CudaLibrary]) -> None:
