@@ -1367,9 +1367,9 @@ def capacity_phase(torch, np, port, gallery, queries, seed: int):
         [len(a & b) / k for a, b in zip(ids_of(hits), ids_of(exact))]))
     out["gallery_search_ms_host_clock"] = host_ms(
         lambda: gallery.search(queries, k=k, method="capacity"))
-    if S4.KERNEL.launches == before or gallery._cap_view is None:
+    if S4.KERNEL.launches == before or gallery._cap.view is None:
         raise AssertionError("method='capacity' did not launch the int4 scan")
-    gallery._cap_view = None  # free its planes before the 10M view
+    gallery._cap.drop()  # free its planes before the 10M view
     torch.cuda.empty_cache()
 
     N, chunk, Q = CAPACITY_ROWS, 262_144, 16

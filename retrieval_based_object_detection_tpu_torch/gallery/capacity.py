@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from retrieval_based_object_detection_tpu_torch.gallery import search as search_lib
-from retrieval_based_object_detection_tpu_torch.gallery.store import upload
+from retrieval_based_object_detection_tpu_torch.gallery.search import upload
 from retrieval_based_object_detection_tpu_torch.utils.platform import (
     resolve_device,
 )
@@ -53,6 +53,27 @@ def fill_planes(bf16: torch.Tensor, packed: torch.Tensor,
     scales[start: start + m] = s
 
 
+def _build_planes(vectors: np.ndarray, lo: int, rows: int, chunk: int,
+                  device: torch.device
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16, packed int4 and scale planes of ``rows`` rows on
+    ``device``, filled a ``chunk`` at a time (one staged f32 chunk on the
+    device at once) from host rows [lo, lo + rows) of ``vectors``, zero
+    past their end: a zero row packs to bytes of 8 and a scale of
+    1e-12 / 7, as the JAX view fills it."""
+    d = vectors.shape[1]
+    bf16 = torch.zeros((rows, d), dtype=torch.bfloat16, device=device)
+    packed = torch.zeros((rows, d // 2), dtype=torch.int8, device=device)
+    scales = torch.zeros(rows, dtype=torch.float32, device=device)
+    for start in range(0, rows, chunk):
+        staged = np.zeros((min(chunk, rows - start), d), np.float32)
+        hi = min(lo + start + len(staged), len(vectors))
+        if hi > lo + start:
+            staged[: hi - lo - start] = vectors[lo + start: hi]
+        fill_planes(bf16, packed, scales, upload(staged, device), start)
+    return bf16, packed, scales
+
+
 def _bf16_from_host(rows: np.ndarray, device: torch.device) -> torch.Tensor:
     """bf16 rows held on the host as their 16-bit patterns (any 2-byte
     dtype: a planes sidecar's uint16) → a bf16 tensor on ``device``."""
@@ -60,7 +81,102 @@ def _bf16_from_host(rows: np.ndarray, device: torch.device) -> torch.Tensor:
     return upload(bits, device).view(torch.bfloat16)
 
 
-class CapacitySearcher:
+class _WritableView:
+    """The write mechanics the capacity and sharded views share: a host
+    shadow of the row mask, pushed to the device a tile at a time;
+    tombstones by row through it; the id map; and the loop of an
+    incremental row write, whose partial edge tiles are read back from the
+    device, overlaid and written whole.
+
+    A view sets ``n_rows``, ``ids``, ``_host_mask`` (one bool for every
+    row it can hold) and ``_tile`` (rows a patch writes at once, dividing
+    that count), and provides the hooks ``_locate(ts)``
+    (where tile ``ts`` lives: its mask tensor, the rows tensor an edge tile
+    is read back from, and its offset in both), ``_write_tile(staged, ts)``
+    (write a host tile of rows at ``ts``) and ``_upload_mask(host_mask)``
+    (a host bool array over the rows in the view's device layout)."""
+
+    _id_to_row: dict[str, int] | None = None  # built from ``ids`` lazily
+
+    def capacity_left(self) -> int:
+        """Rows that can still be appended without a rebuild."""
+        return len(self._host_mask) - self.n_rows
+
+    def ids_of(self, idx: np.ndarray) -> list:
+        """Translate ``search`` row indices to point ids (needs a view
+        built by ``from_gallery`` or with ``ids=``); rows past the id list
+        map to None. Shape is kept as nested lists."""
+        if self.ids is None:
+            raise ValueError("this view was built from raw vectors — "
+                             "construct with ids= or from_gallery for "
+                             "id translation")
+        n = len(self.ids)
+        return [[self.ids[int(i)] if 0 <= int(i) < n else None
+                 for i in row] for row in np.atleast_2d(idx)]
+
+    def _ensure_id_map(self) -> dict[str, int]:
+        if self.ids is None:
+            raise ValueError("id-keyed writes need a view built with "
+                             "ids= (or from_gallery)")
+        if self._id_to_row is None or len(self._id_to_row) != len(self.ids):
+            self._id_to_row = {pid: i for i, pid in enumerate(self.ids)}
+        return self._id_to_row
+
+    def upsert(self, ids, vectors: np.ndarray) -> int:
+        """Id-keyed insert-or-replace (Gallery.upsert semantics);
+        scattered rows group into contiguous runs, one incremental patch
+        each."""
+        return id_keyed_upsert(self, ids, vectors, len(self._host_mask))
+
+    def delete(self, ids) -> int:
+        """Tombstone rows by id through the mask (see set_rows_invalid)."""
+        id_map = self._ensure_id_map()
+        return self.set_rows_invalid(
+            [id_map[pid] for pid in ids if pid in id_map])
+
+    def set_rows_invalid(self, rows) -> int:
+        """Tombstone rows BY INDEX through the mask — the rows stay put.
+        Each affected mask tile is pushed once for the whole batch."""
+        live = [int(r) for r in np.atleast_1d(np.asarray(rows))
+                if 0 <= int(r) < self.n_rows and self._host_mask[int(r)]]
+        for r in live:
+            self._host_mask[r] = False
+        tile = self._tile
+        for ts in sorted({(r // tile) * tile for r in live}):
+            self._push_mask_tile(ts)
+        return len(live)
+
+    def _patch_rows(self, start: int, rows: np.ndarray,
+                    valid: bool = True) -> None:
+        """Write ``rows`` at [start, start + m): full tiles straight from
+        them, partial edge tiles read back, overlaid and written whole;
+        then the mask of the range, pushing only the touched tiles."""
+        end = start + rows.shape[0]
+        tile = self._tile
+        for ts in range((start // tile) * tile, end, tile):
+            te = ts + tile
+            if ts >= start and te <= end:
+                staged = rows[ts - start: te - start]
+            else:
+                _, plane, lo = self._locate(ts)
+                staged = plane[lo: lo + tile].to(torch.float32).cpu().numpy()
+                lo, hi = max(start, ts), min(end, te)
+                staged[lo - ts: hi - ts] = rows[lo - start: hi - start]
+            # ``staged`` may be a slice of the caller's live buffer: the
+            # hook uploads a copy.
+            self._write_tile(staged, ts)
+        self.n_rows = max(self.n_rows, end)
+        self._host_mask[start:end] = valid
+        for ts in range((start // tile) * tile, end, tile):
+            self._push_mask_tile(ts)
+
+    def _push_mask_tile(self, ts: int) -> None:
+        mask, _, lo = self._locate(ts)
+        mask[lo: lo + self._tile] = upload(
+            self._host_mask[ts: ts + self._tile], mask.device)
+
+
+class CapacitySearcher(_WritableView):
     """Writable int4 + bf16 serving view over gallery rows (see the module
     docstring).
 
@@ -88,31 +204,27 @@ class CapacitySearcher:
         # appends (growing the planes later is a full device copy).
         chunk = max(256, (min(chunk, _CHUNK) // 256) * 256)
         self._padded = -(-(n + max(0, headroom)) // chunk) * chunk
-        self.dev_bf16 = torch.zeros((self._padded, d), dtype=torch.bfloat16,
-                                    device=self.device)
-        self.dev_packed = torch.zeros((self._padded, d // 2),
-                                      dtype=torch.int8, device=self.device)
-        self.dev_scales = torch.zeros(self._padded, dtype=torch.float32,
-                                      device=self.device)
-        # Every chunk is filled, the zero tail too, as the JAX view fills
-        # it: a zero row packs to bytes of 8 and a scale of 1e-12 / 7.
-        for start in range(0, self._padded, chunk):
-            staged = np.zeros((chunk, d), np.float32)
-            hi = min(start + chunk, n)
-            if hi > start:
-                staged[: hi - start] = vectors[start:hi]
-            self._fill(upload(staged, self.device), start)
+        self.dev_bf16, self.dev_packed, self.dev_scales = _build_planes(
+            vectors, 0, self._padded, chunk, self.device)
         # Host shadow of the row mask (N bytes — trivial even at 10M):
         # mask writes mutate the shadow, then re-push only affected tiles.
         self._host_mask = np.zeros(self._padded, bool)
         self._host_mask[:n] = mask
         self.dev_mask = upload(self._host_mask, self.device)
         self.ids = ids  # optional row -> point-id mapping (from_gallery)
-        self._id_to_row: dict[str, int] | None = None
 
-    def _fill(self, staged: torch.Tensor, start: int) -> None:
-        fill_planes(self.dev_bf16, self.dev_packed, self.dev_scales, staged,
-                    start)
+    def _write_tile(self, staged: np.ndarray, start: int) -> None:
+        fill_planes(self.dev_bf16, self.dev_packed, self.dev_scales,
+                    upload(staged, self.device), start)
+
+    def _locate(self, ts: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+        return self.dev_mask, self.dev_bf16, ts
+
+    def _upload_mask(self, host_mask: np.ndarray) -> torch.Tensor:
+        buf = np.zeros(self._padded, bool)
+        m = np.asarray(host_mask, bool)[: self._padded]
+        buf[: len(m)] = m
+        return upload(buf, self.device)
 
     @classmethod
     def from_device_planes(cls, bf16: torch.Tensor, packed: torch.Tensor,
@@ -146,7 +258,6 @@ class CapacitySearcher:
         obj._host_mask = host_mask
         obj.dev_mask = upload(host_mask, obj.device)
         obj.ids = ids
-        obj._id_to_row = None
         return obj
 
     @classmethod
@@ -198,18 +309,6 @@ class CapacitySearcher:
                    ids=list(gallery._ids), headroom=headroom,
                    device=gallery.device)
 
-    def ids_of(self, idx: np.ndarray) -> list:
-        """Translate ``search`` row indices to point ids (needs a view
-        built by ``from_gallery`` or with ``ids=``); rows past the id list
-        map to None. Shape is kept as nested lists."""
-        if self.ids is None:
-            raise ValueError("this view was built from raw vectors — "
-                             "construct with ids= or from_gallery for "
-                             "id translation")
-        n = len(self.ids)
-        return [[self.ids[int(i)] if 0 <= int(i) < n else None
-                 for i in row] for row in np.atleast_2d(idx)]
-
     # ------------------------------------------------------------ writes
     @property
     def _tile(self) -> int:
@@ -217,10 +316,6 @@ class CapacitySearcher:
         # default chunking (multiples of 2^18) always admits _TILE, small
         # views fall back to 256-row tiles.
         return _TILE if self._padded % _TILE == 0 else 256
-
-    def capacity_left(self) -> int:
-        """Rows that can still be appended without a plane rebuild."""
-        return self._padded - self.n_rows
 
     def upsert_rows(self, start: int, vectors: np.ndarray) -> None:
         """Overwrite/append rows [start, start+m) incrementally.
@@ -238,70 +333,11 @@ class CapacitySearcher:
             raise ValueError(
                 f"start {start} outside [0, {self.n_rows}] — capacity "
                 "writes are overwrites or contiguous appends")
-        end = start + m
-        if end > self._padded:
+        if start + m > self._padded:
             raise ValueError(
-                f"write to row {end} exceeds capacity {self._padded}; "
+                f"write to row {start + m} exceeds capacity {self._padded}; "
                 "rebuild the view (or build with headroom=)")
-        tile = self._tile
-        for ts in range((start // tile) * tile, end, tile):
-            te = ts + tile
-            if ts >= start and te <= end:
-                staged = vectors[ts - start: te - start]
-            else:
-                # Edge tile: read back (tile x D bf16), overlay the new
-                # rows, re-push the whole tile.
-                staged = self.dev_bf16[ts:te].to(torch.float32).cpu().numpy()
-                lo, hi = max(start, ts), min(end, te)
-                staged[lo - ts: hi - ts] = vectors[lo - start: hi - start]
-            # ``staged`` may be a slice of the caller's live buffer:
-            # upload copies.
-            self._fill(upload(staged, self.device), ts)
-        self.n_rows = max(self.n_rows, end)
-        self._set_mask_range(start, end, True)
-
-    def _push_mask_tile(self, ts: int) -> None:
-        tile = self._tile
-        self.dev_mask[ts: ts + tile] = upload(
-            self._host_mask[ts: ts + tile], self.device)
-
-    def _set_mask_range(self, lo: int, hi: int, value: bool) -> None:
-        self._host_mask[lo:hi] = value
-        tile = self._tile
-        for ts in range((lo // tile) * tile, hi, tile):
-            self._push_mask_tile(ts)
-
-    def _ensure_id_map(self) -> dict[str, int]:
-        if self.ids is None:
-            raise ValueError("id-keyed writes need a view built with "
-                             "ids= (or from_gallery)")
-        if self._id_to_row is None or len(self._id_to_row) != len(self.ids):
-            self._id_to_row = {pid: i for i, pid in enumerate(self.ids)}
-        return self._id_to_row
-
-    def upsert(self, ids, vectors: np.ndarray) -> int:
-        """Id-keyed insert-or-replace (Gallery.upsert semantics at
-        capacity scale); scattered rows group into contiguous runs, one
-        incremental patch each."""
-        return id_keyed_upsert(self, ids, vectors, self._padded)
-
-    def set_rows_invalid(self, rows) -> int:
-        """Tombstone rows BY INDEX through the mask — the planes stay put.
-        Each affected mask tile is pushed once for the whole batch."""
-        live = [int(r) for r in rows
-                if 0 <= int(r) < self.n_rows and self._host_mask[int(r)]]
-        for r in live:
-            self._host_mask[r] = False
-        tile = self._tile
-        for ts in sorted({(r // tile) * tile for r in live}):
-            self._push_mask_tile(ts)
-        return len(live)
-
-    def delete(self, ids) -> int:
-        """Tombstone rows by id through the mask (see set_rows_invalid)."""
-        id_map = self._ensure_id_map()
-        return self.set_rows_invalid(
-            [id_map[pid] for pid in ids if pid in id_map])
+        self._patch_rows(start, vectors)
 
     def search(self, queries: np.ndarray, k: int = 10,
                rescore: int = 256,
@@ -309,7 +345,11 @@ class CapacitySearcher:
                ) -> tuple[np.ndarray, np.ndarray]:
         """(scores [Q, k], row indices [Q, k]) as host arrays; rows outside
         the view's mask or ``extra_mask`` (a host bool array over the rows,
-        or a device mask at the padded row count) score NEG_INF."""
+        or a device mask at the padded row count) score NEG_INF.
+
+        ``max(rescore, k)`` candidates are rescored. At the default, which
+        the Gallery's capacity tier uses, that is ``search.rescore_depth``
+        for k <= 32 and fewer above it, where that rule takes 8 a hit."""
         queries = np.asarray(queries, np.float32)
         if queries.ndim == 1:
             queries = queries[None]
@@ -326,11 +366,8 @@ class CapacitySearcher:
             else:
                 # A host mask built before an append still covers the rows
                 # it has; appended rows default to excluded.
-                buf = np.zeros(self._padded, bool)
-                m = np.asarray(extra_mask, bool)
-                n = min(self.n_rows, m.shape[0])
-                buf[:n] = m[:n]
-                mask = mask & upload(buf, self.device)
+                mask = mask & self._upload_mask(
+                    np.asarray(extra_mask, bool)[: self.n_rows])
         q = upload(queries, self.device)
         scores, idx = search_lib.int4_scan_topk(
             q, self.dev_packed, self.dev_scales, self.dev_bf16, mask,

@@ -512,7 +512,8 @@ def _replay_delta_fast(g: Gallery, meta: dict, vectors: np.ndarray) -> None:
         if len(app) and not np.array_equal(
                 app, np.arange(nphys, nphys + len(app))):
             raise _FastReplayInvalid("append rows not contiguous")
-    if g._cap_view is not None or g._resolved_paths is not None:
+    if any(h.view is not None for h in g._views) \
+            or g._resolved_paths is not None:
         # Derived views never exist during a load; if one does, take the
         # id-keyed path that maintains them.
         raise _FastReplayInvalid("derived views live")
@@ -563,7 +564,7 @@ def _replay_delta_fast(g: Gallery, meta: dict, vectors: np.ndarray) -> None:
         pls = cols.get_rows(np.arange(len(ids)))
         g._vectors[rows] = vectors[: len(ids)]
         g._payloads.set_rows(rows, pls)  # lazy-safe (pending overlay)
-    g._mask_cache.clear()
+    g._masks.clear()
     g._wseq += 1
 
 

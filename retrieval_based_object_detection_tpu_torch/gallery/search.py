@@ -55,6 +55,14 @@ NEG_INF = -1e30
 _L1_CHUNK = 1024
 
 
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``, always as a copy: ``torch.from_numpy``
+    aliases host memory, and on the CPU ``.to(device)`` keeps the alias,
+    so a later write to a reused staging buffer or a live store buffer
+    would reach the device value."""
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Row-wise L2 normalisation in float32."""
     x = x.to(torch.float32)
@@ -76,14 +84,7 @@ def masked_cosine_topk(
     when fewer than k rows match (callers check scores > NEG_INF/2)."""
     q = l2_normalize(queries)
     g = gallery if gallery_normalized else l2_normalize(gallery)
-    if exact:
-        scores = q @ g.to(torch.float32).T
-    else:
-        # bf16 operands, f32 scores: a bf16 product is exact in f32, so
-        # this is the f32-accumulated bf16 dot of the JAX tier.
-        scores = (q.to(torch.bfloat16).to(torch.float32)
-                  @ g.to(torch.bfloat16).to(torch.float32).T)
-    scores = torch.where(mask[None, :], scores, NEG_INF)
+    scores = torch.where(mask[None, :], _dots_f32(q, g, exact), NEG_INF)
     return torch.topk(scores, k, dim=1)
 
 
@@ -94,7 +95,8 @@ def _dots_f32(q: torch.Tensor, g: torch.Tensor, exact: bool
     ``exact=True`` is JAX's ``Precision.HIGHEST``: an f32 product, with
     TF32 off as for the exact cosine tier (the caller keeps it off, which
     is PyTorch's default). ``exact=False`` multiplies bf16-rounded operands
-    with f32 scores, as the bf16 cosine tier does."""
+    with f32 scores: a bf16 product is exact in f32, so this is the
+    f32-accumulated bf16 dot of the JAX tier."""
     if exact:
         return q @ g.to(torch.float32).T
     return (q.to(torch.bfloat16).to(torch.float32)
@@ -180,7 +182,7 @@ def _best(exact, cand_i, k):
     return best_s, torch.gather(cand_i, 1, pos)
 
 
-def _rescore(qn, gallery_rows, cand_s, cand_i, k, live):
+def _rescore(qn, gallery_rows, cand_i, k, live):
     """Rescore the candidates (``_rescored``) and keep the best ``k``."""
     return _best(_rescored(qn, gallery_rows, cand_i, live), cand_i, k)
 
@@ -212,12 +214,18 @@ def int8_scan_topk(
                                    rescore), k)
 
 
+def rescore_depth(k: int, rows: int) -> int:
+    """Candidates the int8 and int4 tiers rescore for a top-``k`` over
+    ``rows`` rows: eight per hit, at least 256, at most the rows."""
+    return min(max(8 * k, 256), rows)
+
+
 # The query counts the int8 chain is captured for. A call's queries go into
 # the first of these that holds them (the rows past them are left over from
 # earlier calls: each query row's results depend on that row alone), so a
 # card holds at most this many graphs per pair of mirrors, whatever shapes
 # the callers send. More queries, or more candidates than
-# GRAPH_MAX_RESCORE (k > 32 at the gallery's 8k rule), run eagerly.
+# GRAPH_MAX_RESCORE (k > 32 under ``rescore_depth``), run eagerly.
 GRAPH_QUERIES = (1, 2, 4, 8, 16, 32, 64)
 GRAPH_MAX_RESCORE = 256
 
@@ -442,7 +450,7 @@ def int8_cosine_topk(
     scores = torch.where(mask[None, :], scores, sentinel)
     cand_s, cand_i = torch.topk(scores, min(rescore, gallery_i8.shape[0]),
                                 dim=1)
-    return _rescore(qn, gallery_f32, cand_s, cand_i, k, cand_s > sentinel)
+    return _rescore(qn, gallery_f32, cand_i, k, cand_s > sentinel)
 
 
 def pack_rows_int4(normalized_rows: torch.Tensor
@@ -485,8 +493,7 @@ def int4_scan_topk(
     penalty = torch.where(mask, 0.0, NEG_INF).to(torch.float32)
     scores = int4_scan_scores(q_i8, packed, scales, penalty)
     cand_s, cand_i = torch.topk(scores, min(rescore, N), dim=1)
-    return _rescore(qn, gallery_f32, cand_s, cand_i, k,
-                    cand_s > NEG_INF / 2)
+    return _rescore(qn, gallery_f32, cand_i, k, cand_s > NEG_INF / 2)
 
 
 def int4_cosine_topk(
@@ -509,5 +516,4 @@ def int4_cosine_topk(
     scores = int4_scan_scores_plain(q_i8, packed, scales, no_penalty)
     scores = torch.where(mask[None, :], scores, NEG_INF)
     cand_s, cand_i = torch.topk(scores, min(rescore, packed.shape[0]), dim=1)
-    return _rescore(qn, gallery_f32, cand_s, cand_i, k,
-                    cand_s > NEG_INF / 2)
+    return _rescore(qn, gallery_f32, cand_i, k, cand_s > NEG_INF / 2)

@@ -19,18 +19,16 @@ broken by shard order as ``lax.top_k`` breaks them (a stable sort).
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from retrieval_based_object_detection_tpu_torch.gallery import search as search_lib
 from retrieval_based_object_detection_tpu_torch.gallery.capacity import (
     _CHUNK,
-    fill_planes,
-    id_keyed_upsert,
+    _WritableView,
+    _build_planes,
 )
-from retrieval_based_object_detection_tpu_torch.gallery.store import upload
+from retrieval_based_object_detection_tpu_torch.gallery.search import upload
 
 AXIS = "gallery"
 
@@ -57,12 +55,6 @@ def shard_devices(mesh) -> list[torch.device]:
     if AXIS not in mesh.shape:
         raise ValueError(f"mesh has no '{AXIS}' axis: {dict(mesh.shape)}")
     return mesh.axis_devices(AXIS)
-
-
-def _on(device: torch.device):
-    """Make ``device`` current, so a kernel launches on it and its stream."""
-    return (torch.cuda.device(device) if device.type == "cuda"
-            else contextlib.nullcontext())
 
 
 def build_sharded(
@@ -114,13 +106,12 @@ def _gather_merge(scores: list[torch.Tensor], idx: list[torch.Tensor],
 
 def _per_shard(queries: torch.Tensor, shards: list[tuple], fn
                ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
-    """Run ``fn(q, *shard_tensors)`` on each shard's device, with the
-    shard's device current: its (scores, rows) lists, in shard order."""
+    """Run ``fn(q, *shard_tensors)`` on each shard's device (a kernel
+    launches on its tensors' card): its (scores, rows) lists, in shard
+    order."""
     scores, idx = [], []
     for tensors in shards:
-        dev = tensors[0].device
-        with _on(dev):
-            s, i = fn(queries.to(dev), *tensors)
+        s, i = fn(queries.to(tensors[0].device), *tensors)
         scores.append(s)
         idx.append(i)
     return scores, idx
@@ -199,7 +190,7 @@ def _check_shards(mesh, shards: list[torch.Tensor]) -> None:
                          f"the mesh's gallery devices {devices}")
 
 
-class ShardedGallerySearcher:
+class ShardedGallerySearcher(_WritableView):
     """Writable search view over a Gallery's rows, sharded over a mesh.
 
     ``dev_vectors`` / ``dev_mask`` are lists with one tensor per shard
@@ -216,7 +207,6 @@ class ShardedGallerySearcher:
         self.n_rows = vectors.shape[0]
         self.capacity = capacity
         self.ids = ids  # optional row -> point-id mapping (from_gallery)
-        self._id_to_row: dict[str, int] | None = None
         n_shards = len(self.devices)
         self.rows_per = shard_rows(self.n_rows + max(0, headroom), n_shards)
         self.total = self.rows_per * n_shards
@@ -231,25 +221,12 @@ class ShardedGallerySearcher:
             # bytes/dim per shard, built chunk by chunk from the host rows
             # (one staged f32 chunk on the device at a time). Quantised
             # tiers only; rescored hit scores carry bf16's error.
-            d = vectors.shape[1]
             per = self.rows_per
             chunk = max(256, (min(_CHUNK, per) // 256) * 256)
             self.dev_vectors, self._dev_int4 = [], []
             for s, dev in enumerate(self.devices):
-                bf16 = torch.zeros((per, d), dtype=torch.bfloat16,
-                                   device=dev)
-                packed = torch.zeros((per, d // 2), dtype=torch.int8,
-                                     device=dev)
-                scales = torch.zeros(per, dtype=torch.float32, device=dev)
-                for start in range(0, per, chunk):
-                    c = min(chunk, per - start)
-                    buf = np.zeros((c, d), np.float32)
-                    lo = s * per + start
-                    hi = min(lo + c, self.n_rows)
-                    if hi > lo:
-                        buf[: hi - lo] = vectors[lo:hi]
-                    fill_planes(bf16, packed, scales, upload(buf, dev),
-                                start)
+                bf16, packed, scales = _build_planes(vectors, s * per, per,
+                                                     chunk, dev)
                 self.dev_vectors.append(bf16)
                 self._dev_int4.append((packed, scales))
         # Host shadow of the row mask (total bools): the write path pushes
@@ -277,28 +254,20 @@ class ShardedGallerySearcher:
             out.append(upload(buf, dev))
         return out
 
-    def _build_int8(self) -> None:
-        """Per-shard int8 mirror (lazy), quantised on each shard's device
-        from its normalised rows with the query side's quantiser — the
-        exact-integer scores depend on the two matching bit for bit. In
-        capacity mode the source rows are bf16, so the int8 tier is then
-        approximate at bf16 fidelity."""
-        self._int8_graphs.clear()
-        self._dev_int8 = [search_lib.quantize_rows_int8(v)
-                          for v in self.dev_vectors]
-
-    def _build_int4(self) -> None:
-        """Per-shard int4 planes (lazy), packed on each shard's device."""
-        self._dev_int4 = [search_lib.pack_rows_int4(v)
-                          for v in self.dev_vectors]
-
     def ensure_mirror(self, method: str) -> None:
         """Build the lazy mirror that tier ``method`` scans, if it is
-        missing: the int8 rows for "int8", the int4 planes for "int4"."""
+        missing, on each shard's device from its normalised rows: the int8
+        rows for "int8" (quantised with the query side's quantiser — the
+        exact-integer scores depend on the two matching bit for bit; in
+        capacity mode the source rows are bf16, so the int8 tier is then
+        approximate at bf16 fidelity), the int4 planes for "int4"."""
         if method == "int8" and self._dev_int8 is None:
-            self._build_int8()
+            self._int8_graphs.clear()
+            self._dev_int8 = [search_lib.quantize_rows_int8(v)
+                              for v in self.dev_vectors]
         elif method == "int4" and self._dev_int4 is None:
-            self._build_int4()
+            self._dev_int4 = [search_lib.pack_rows_int4(v)
+                              for v in self.dev_vectors]
 
     @classmethod
     def from_gallery(cls, gallery, mesh, flt=None,
@@ -311,30 +280,17 @@ class ShardedGallerySearcher:
         return cls(vectors, mask, mesh, capacity=capacity,
                    ids=list(gallery._ids), headroom=headroom)
 
-    def ids_of(self, idx: np.ndarray) -> list:
-        """Translate ``search`` row indices to point ids (views built
-        by ``from_gallery`` or with ``ids=``); rows past the id list map to
-        None."""
-        if self.ids is None:
-            raise ValueError("this view was built from raw vectors — "
-                             "construct with ids= or from_gallery for "
-                             "id translation")
-        return [[self.ids[int(i)] if 0 <= int(i) < len(self.ids)
-                 else None for i in row]
-                for row in np.atleast_2d(idx)]
-
     # ------------------------------------------------------------ writes
-    # Incremental writes, as the capacity view patches them: full tiles
-    # from the new rows, partial edge tiles read back, overlaid and
-    # re-pushed. Every built mirror (rows, int8, int4 planes) and the mask
-    # patch in lockstep, so a small upsert never rebuilds the view.
-    _TILE = _WRITE_TILE
+    # Incremental writes, as the capacity view patches them. Every built
+    # mirror (rows, int8, int4 planes) and the mask patch in lockstep, so a
+    # small upsert never rebuilds the view.
+    _tile = _WRITE_TILE
 
-    def capacity_left(self) -> int:
-        return self.total - self.n_rows
+    def _locate(self, ts: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+        s, lo = divmod(ts, self.rows_per)
+        return self.dev_mask[s], self.dev_vectors[s], lo
 
-    def _locate(self, row: int) -> tuple[int, int]:
-        return divmod(row, self.rows_per)
+    _upload_mask = split_mask
 
     def upsert_rows(self, start: int, vectors: np.ndarray,
                     valid: bool = True) -> None:
@@ -348,32 +304,19 @@ class ShardedGallerySearcher:
             raise ValueError(
                 f"start {start} outside [0, {self.n_rows}] — sharded "
                 "writes are overwrites or contiguous appends")
-        end = start + m
-        if end > self.total:
+        if start + m > self.total:
             raise ValueError(
-                f"write to row {end} exceeds padded capacity {self.total}; "
-                "rebuild the view over a bigger mesh/row count")
+                f"write to row {start + m} exceeds padded capacity "
+                f"{self.total}; rebuild the view over a bigger mesh/row "
+                "count")
         rows = vectors / np.maximum(
             np.linalg.norm(vectors, axis=1, keepdims=True), 1e-12)
-        tile = self._TILE
-        for ts in range((start // tile) * tile, end, tile):
-            te = ts + tile
-            if ts >= start and te <= end:
-                staged = rows[ts - start: te - start]
-            else:
-                s, lo = self._locate(ts)
-                staged = self.dev_vectors[s][lo: lo + tile].to(
-                    torch.float32).cpu().numpy()
-                lo, hi = max(start, ts), min(end, te)
-                staged[lo - ts: hi - ts] = rows[lo - start: hi - start]
-            self._patch_write_tile(staged, ts)
-        self.n_rows = max(self.n_rows, end)
-        self._set_mask_range(start, end, valid)
+        self._patch_rows(start, rows, valid)
 
-    def _patch_write_tile(self, staged: np.ndarray, ts: int) -> None:
-        s, lo = self._locate(ts)
+    def _write_tile(self, staged: np.ndarray, ts: int) -> None:
+        s, lo = divmod(ts, self.rows_per)
         hi = lo + staged.shape[0]
-        rows = upload(staged, self.devices[s])  # a copy: staged may alias
+        rows = upload(staged, self.devices[s])
         self.dev_vectors[s][lo:hi] = rows.to(self.dev_vectors[s].dtype)
         if self._dev_int8 is not None:
             self._dev_int8[s][lo:hi] = search_lib.quantize_rows_int8(rows)
@@ -381,53 +324,8 @@ class ShardedGallerySearcher:
             packed, scales = self._dev_int4[s]
             packed[lo:hi], scales[lo:hi] = search_lib.pack_rows_int4(rows)
 
-    def _push_mask_tile(self, ts: int) -> None:
-        s, lo = self._locate(ts)
-        self.dev_mask[s][lo: lo + self._TILE] = upload(
-            self._host_mask[ts: ts + self._TILE], self.devices[s])
-
-    def _set_mask_range(self, lo: int, hi: int, value: bool) -> None:
-        """Update [lo, hi) in the host shadow and push ONLY the touched
-        tiles."""
-        self._host_mask[lo:hi] = value
-        tile = self._TILE
-        for ts in range((lo // tile) * tile, hi, tile):
-            self._push_mask_tile(ts)
-
-    def _ensure_id_map(self) -> dict[str, int]:
-        if self.ids is None:
-            raise ValueError("id-keyed writes need a view built with "
-                             "ids= (or from_gallery)")
-        if self._id_to_row is None or len(self._id_to_row) != len(self.ids):
-            self._id_to_row = {pid: i for i, pid in enumerate(self.ids)}
-        return self._id_to_row
-
-    def upsert(self, ids, vectors: np.ndarray) -> int:
-        """Id-keyed insert-or-replace (Gallery.upsert semantics; the one
-        implementation shared with ``CapacitySearcher.upsert``)."""
-        return id_keyed_upsert(self, ids, vectors, self.total)
-
-    def delete(self, ids) -> int:
-        """Tombstone rows by id through the mask."""
-        id_map = self._ensure_id_map()
-        return self.delete_rows(
-            [id_map[pid] for pid in ids if pid in id_map])
-
-    def delete_rows(self, rows: "np.ndarray | list[int]") -> int:
-        """Tombstone rows through the mask (the rows stay put); each
-        touched mask tile is pushed once for the whole batch."""
-        live = [int(r) for r in np.atleast_1d(np.asarray(rows))
-                if 0 <= int(r) < self.n_rows and self._host_mask[int(r)]]
-        for r in live:
-            self._host_mask[r] = False
-        tile = self._TILE
-        for ts in sorted({(r // tile) * tile for r in live}):
-            self._push_mask_tile(ts)
-        return len(live)
-
-    # Name parity with CapacitySearcher, so the Gallery's pending-op replay
-    # drives both view kinds through one code path.
-    set_rows_invalid = delete_rows
+    # ``set_rows_invalid`` under the JAX package's name for it.
+    delete_rows = _WritableView.set_rows_invalid
 
     def search(self, queries: np.ndarray, k: int = 10, exact: bool = True,
                method: str | None = None,
@@ -452,13 +350,13 @@ class ShardedGallerySearcher:
         mask = self.dev_mask
         if extra_mask is not None:
             if not isinstance(extra_mask, (list, tuple)):
-                m = np.asarray(extra_mask, bool)[: self.n_rows]
-                extra_mask = self.split_mask(m)
+                extra_mask = self.split_mask(
+                    np.asarray(extra_mask, bool)[: self.n_rows])
             mask = [a & b.to(a.device) for a, b in zip(mask, extra_mask)]
         # Each shard takes its own top-k, so k must fit one shard.
         per_shard = self.rows_per
         k_eff = min(k, self.n_rows, per_shard)
-        rescore = min(max(8 * k_eff, 256), per_shard)
+        rescore = search_lib.rescore_depth(k_eff, per_shard)
         self.ensure_mirror(method)
         if method == "int8":
             # The host queries go straight into each card's graph input.

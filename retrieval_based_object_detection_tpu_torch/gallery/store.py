@@ -30,13 +30,18 @@ from typing import Any, Iterable, Sequence
 import numpy as np
 import torch
 
+from retrieval_based_object_detection_tpu_torch.gallery import planes, sharded
 from retrieval_based_object_detection_tpu_torch.gallery import search as search_lib
+from retrieval_based_object_detection_tpu_torch.gallery.capacity import (
+    CapacitySearcher,
+)
 from retrieval_based_object_detection_tpu_torch.gallery.schema import (
     Filter,
     Payload,
     PayloadColumns,
     _gc_paused,
 )
+from retrieval_based_object_detection_tpu_torch.gallery.search import upload
 from retrieval_based_object_detection_tpu_torch.utils import (
     logging as tracer,
 )
@@ -45,33 +50,93 @@ from retrieval_based_object_detection_tpu_torch.utils.platform import (
 )
 
 
-def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``, always as a copy: ``torch.from_numpy``
-    aliases host memory, and on the CPU ``.to(device)`` keeps the alias,
-    so a later write to a reused staging buffer or a live store buffer
-    would reach the device value."""
-    return torch.from_numpy(np.array(x, copy=True)).to(device)
+class _MaskCache(dict):
+    """Device row masks by canonical filter key, each stored beside the row
+    count it was built for; at most ``bound`` of them (past it the cache
+    starts over). A hit is one dict read; a miss builds under ``lock``,
+    once per filter across concurrent readers."""
+
+    def __init__(self, lock, bound: int):
+        super().__init__()
+        self._lock = lock
+        self._bound = bound
+
+    def fetch(self, key, rows: int, build):
+        """The mask of ``key`` at ``rows`` rows, built by ``build()`` when
+        missing or built for another row count."""
+        hit = self.get(key)
+        if hit is None or hit[0] != rows:
+            with self._lock:
+                hit = self.get(key)
+                if hit is None or hit[0] != rows:
+                    mask = build()
+                    if len(self) >= self._bound:
+                        self.clear()
+                    hit = self[key] = (rows, mask)
+        return hit[1]
 
 
-def _replay_view_ops(view, ops: list[tuple], vectors: np.ndarray) -> None:
-    """Drive a writable serving view (``CapacitySearcher`` or
-    ``ShardedGallerySearcher``) through a
-    pending-op log, IN ORDER. ``("rows", sorted_row_array)`` replays
-    contiguous runs as one incremental patch each; ``("mask", [rows])``
-    tombstones. Raises ValueError when the view's build-time headroom
-    overflows (the caller rebuilds once)."""
-    for op in ops:
-        if op[0] == "rows":
-            rows = op[1]
-            run_start = 0  # contiguous runs -> one patch each
-            for i in range(1, len(rows) + 1):
-                if i == len(rows) or rows[i] != rows[i - 1] + 1:
-                    lo = int(rows[run_start])
-                    hi = int(rows[i - 1]) + 1
-                    view.upsert_rows(lo, vectors[lo:hi])
-                    run_start = i
-        else:
-            view.set_rows_invalid(op[1])
+class _ViewHolder:
+    """One writable serving view's life beside the Gallery's rows (the
+    capacity view, or the sharded one): the view, None until a search
+    needs it; the log of the writes made since its last sync; and its
+    per-filter device masks."""
+
+    def __init__(self, lock, mask_bound: int):
+        self.view = None
+        self.pending: list[tuple] = []
+        self.masks = _MaskCache(lock, mask_bound)
+
+    def drop(self) -> None:
+        self.view = None
+        self.pending.clear()
+        self.masks.clear()
+
+    def note(self, op) -> None:
+        """A write to the Gallery: the cached masks go, and a live view
+        queues ``op`` (None: nothing to queue)."""
+        self.masks.clear()
+        if op is not None and self.view is not None:
+            self.pending.append(op)
+
+    def sync(self, build, vectors: np.ndarray):
+        """The view, built by ``build()`` when there is none, else patched
+        by replaying the log IN ORDER: ``("rows", sorted_rows)`` writes
+        each contiguous run of ``vectors`` as one incremental patch,
+        ``("mask", rows)`` tombstones. A replay that outgrows the view's
+        build-time headroom (ValueError) rebuilds it once. Called under
+        the Gallery's lock: two concurrent first searches must not both
+        replay (and clear) the same log."""
+        if self.view is not None:
+            try:
+                for kind, rows in self.pending:
+                    if kind == "mask":
+                        self.view.set_rows_invalid(rows)
+                        continue
+                    run_start = 0
+                    for i in range(1, len(rows) + 1):
+                        if i == len(rows) or rows[i] != rows[i - 1] + 1:
+                            lo, hi = int(rows[run_start]), int(rows[i - 1]) + 1
+                            self.view.upsert_rows(lo, vectors[lo:hi])
+                            run_start = i
+            except ValueError:
+                self.view = None
+        if self.view is None:
+            self.view = build()
+            self.masks.clear()
+        self.pending.clear()
+        return self.view
+
+    def mask(self, view, flt: Filter | None, payloads: PayloadColumns):
+        """``flt``'s payload rows in ``view``'s device layout, cached (re-
+        uploading N bools a query would dominate at 10M rows); None
+        without a filter. Validity and tombstones live in the view's own
+        mask."""
+        if flt is None:
+            return None
+        return self.masks.fetch(
+            flt.cache_key(), len(view._host_mask),
+            lambda: view._upload_mask(payloads.mask(flt)))
 
 
 @dataclass
@@ -197,26 +262,28 @@ class Gallery:
         self._synced = 0
         self._dirty_lo = 0
         self._dirty_hi = 0
-        # Device filter masks keyed by canonical filter; cleared on writes.
-        self._mask_cache: dict[Any, torch.Tensor] = {}
+        # Guards LAZY builds under concurrent readers: mirror and view
+        # builds and syncs, pending-op replays, mask builds, the id
+        # materialisations. Reentrant: the build paths nest.
+        self._view_mut = threading.RLock()
+        # Device filter masks of the mirrors (live AND filter), keyed by
+        # canonical filter; cleared on writes.
+        self._masks = _MaskCache(self._view_mut, 128)
         # The int8 tier's chain as CUDA graphs over the mirrors above;
         # cleared wherever the mirrors are rebuilt.
         self._int8_graphs = search_lib.Int8ScanGraphs()
-        # Capacity serving tier (method="capacity", auto past
-        # CAPACITY_AUTO_BYTES): a lazily built WRITABLE CapacitySearcher
-        # kept in sync through the pending-op log (row sets from upserts,
-        # mask rows from deletes), so small writes patch tiles.
-        self._cap_view = None
-        self._cap_pending: list[tuple] = []
-        self._cap_mask_cache: dict[Any, torch.Tensor] = {}
-        # Sharded serving tier (method="sharded", auto once a gallery mesh
-        # is attached — attach_mesh): a lazily built WRITABLE
-        # ShardedGallerySearcher kept in sync through its own pending-op
-        # log, with per-filter device masks split alongside the rows.
+        # The two WRITABLE serving views, built lazily and kept in sync
+        # through their pending-op logs (row sets from upserts, mask rows
+        # from deletes), so small writes patch tiles: the capacity view
+        # (method="capacity", auto past CAPACITY_AUTO_BYTES; 64 masks, one
+        # is 10.5 MB at 10.5M rows) and the sharded view (method=
+        # "sharded", auto once a gallery mesh is attached — attach_mesh;
+        # 128 masks, so that a caller filtering on any of 100 classes and
+        # a few data types stays inside them).
         self._gallery_mesh = None
-        self._shard_view = None
-        self._shard_pending: list[tuple] = []
-        self._shard_mask_cache: dict[Any, list[torch.Tensor]] = {}
+        self._cap = _ViewHolder(self._view_mut, 64)
+        self._shard = _ViewHolder(self._view_mut, 128)
+        self._views = (self._cap, self._shard)
         # Capacity-plane sidecar (gallery/planes.py), recorded by the
         # snapshot loader; checked against the snapshot identity when the
         # view is built (a stale sidecar falls back to the device build).
@@ -232,10 +299,11 @@ class Gallery:
         self._resolved_dups: dict[str, list[int]] = {}
         self._resolved_dirty: set[int] = set()     # rows to re-index
         self._resolved_hi = 0                      # rows [0, hi) indexed
-        # Guards LAZY builds under concurrent readers: mirror and view
-        # builds and syncs, pending-op replays, the id materialisations.
-        # Reentrant: the build paths nest.
-        self._view_mut = threading.RLock()
+
+    @property
+    def _shard_view(self):
+        """The live sharded view, or None."""
+        return self._shard.view
 
     # ------------------------------------------------------------ ids
     @property
@@ -460,9 +528,8 @@ class Gallery:
         existing = rows[rows < old_len]
         if existing.size:
             self._mark_dirty(int(existing.min()), int(existing.max()) + 1)
-        else:
-            self._mask_cache.clear()  # appends change the validity mask
-        if self._cap_view is not None or self._shard_view is not None:
+        op = None
+        if any(h.view is not None for h in self._views):
             # EXACT row sets, not covering ranges: replaying a covering
             # span would mark every row in between valid, reviving the
             # tombstones inside it.
@@ -470,12 +537,8 @@ class Gallery:
             if len(self._ids) > old_len:
                 written = np.union1d(
                     written, np.arange(old_len, len(self._ids)))
-            if self._cap_view is not None:
-                self._cap_pending.append(("rows", written))
-            if self._shard_view is not None:
-                self._shard_pending.append(("rows", written))
-        self._cap_mask_cache.clear()
-        self._shard_mask_cache.clear()
+            op = ("rows", written)
+        self._note_write(op)
         self._patch_resolved(rows)
         self._wseq += 1
         if self._snap_id is not None:
@@ -536,17 +599,11 @@ class Gallery:
             key = back.pop(r, None)
             if key is not None:
                 self._resolved_remove(r, key)
-        self._mask_cache.clear()  # validity changed; mirrors still good
-        self._cap_mask_cache.clear()
-        self._shard_mask_cache.clear()
-        if self._cap_view is not None:
-            self._cap_pending.append(("mask", dropped))
-        if self._shard_view is not None:
-            self._shard_pending.append(("mask", dropped))
+        self._note_write(("mask", dropped))  # the mirrors still hold
         self._wseq += 1
         if (self._n_dead >= self._COMPACT_DEAD_MIN
                 and self._n_dead >= self._COMPACT_DEAD_FRACTION * n):
-            if (self._cap_view is not None or self._shard_view is not None
+            if (any(h.view is not None for h in self._views)
                     or n >= self._COMPACT_INLINE_MAX_ROWS):
                 # Backpressure: compacting here would rebuild every mirror
                 # and the capacity or sharded view mid-request. Flag it for
@@ -573,14 +630,14 @@ class Gallery:
             q = np.asarray(self._vectors[:1], np.float32)  # a real row
             k_eff = min(k, len(self))
             # exact=False follows the auto route; the f32 mirror of
-            # exact=True is warmed too where it fits (under a mesh or at
-            # capacity scale an exact search raises or never runs through
-            # this store's mirrors).
-            exact_fits = (self._gallery_mesh is None
-                          and not (self.distance == "cosine"
-                                   and self.dim % 2 == 0
-                                   and self._nrows * self.dim * 5
-                                   > self.CAPACITY_AUTO_BYTES))
+            # exact=True is warmed too where that route is a mirror (under
+            # a mesh or at capacity scale an exact search raises or never
+            # runs through this store's mirrors).
+            auto, _ = self._route(self._nrows, self.dim, self.distance,
+                                  False, None,
+                                  self._gallery_mesh is not None,
+                                  self.device.type)
+            exact_fits = auto not in ("sharded", "capacity")
             for exact in ((False, True) if exact_fits else (False,)):
                 self.search(q, k=k_eff, exact=exact)
                 for flt in filters:
@@ -817,18 +874,20 @@ class Gallery:
         self._int8_graphs.clear()
         self._synced = 0
         self._dirty_lo = self._dirty_hi = 0
-        self._mask_cache.clear()
-        self._cap_view = None
-        self._cap_pending.clear()
-        self._cap_mask_cache.clear()
-        self._shard_view = None
-        self._shard_pending.clear()
-        self._shard_mask_cache.clear()
+        self._masks.clear()
+        for h in self._views:
+            h.drop()
+
+    def _note_write(self, op) -> None:
+        """A write changed payloads or validity: every cached device mask
+        goes, and each live view queues ``op`` (None: nothing to queue)."""
+        self._masks.clear()
+        for h in self._views:
+            h.note(op)
 
     def _mark_dirty(self, lo: int, hi: int) -> None:
         """Record a host-row write; mirrors patch the range at next sync
         (the resolved-path index is patched by _patch_resolved)."""
-        self._mask_cache.clear()
         if self._dirty_hi > self._dirty_lo:
             self._dirty_lo = min(self._dirty_lo, lo)
             self._dirty_hi = max(self._dirty_hi, hi)
@@ -869,7 +928,7 @@ class Gallery:
             self._dev_f32 = self._dev_bf16 = self._dev_int8 = None
             self._dev_int4 = None
             self._int8_graphs.clear()
-            self._mask_cache.clear()
+            self._masks.clear()
         # The int8 tier rescores from the f32 mirror, so i8 implies f32.
         if ((f32 or i8) and self._dev_f32 is None) or (
                 bf16 and self._dev_bf16 is None and self._dev_f32 is None):
@@ -918,60 +977,29 @@ class Gallery:
             start += chunk
 
     def _device_mask(self, flt: Filter | None) -> torch.Tensor:
-        """Device-resident row mask (live AND filter), cached per filter
-        so a repeated filter costs no host mask build or upload. Deletes
-        clear the cache; the mirrors stay as they are."""
-        key = None if flt is None else flt.cache_key()
-        cached = self._mask_cache.get(key)
-        if cached is not None:
-            return cached
-        with self._view_mut:  # single build per filter across readers
-            cached = self._mask_cache.get(key)
-            if cached is not None:
-                return cached
+        """Device-resident row mask (live AND filter) at the mirrors'
+        padding, cached per filter so a repeated filter costs no host mask
+        build or upload. Writes clear the cache; the mirrors stay as they
+        are."""
+        def build():
             buf = np.zeros(self._padded, dtype=bool)
             buf[: self._nrows] = self._mask_live(flt)  # tombstones out
-            mask = torch.from_numpy(buf).to(self.device)
-            if len(self._mask_cache) >= 128:
-                self._mask_cache.clear()
-            self._mask_cache[key] = mask
-            return mask
+            return torch.from_numpy(buf).to(self.device)
+
+        return self._masks.fetch(None if flt is None else flt.cache_key(),
+                                 self._padded, build)
 
     # ------------------------------------------------------ capacity tier
-    def _ensure_capacity_view(self):
-        """Build (or incrementally sync) the writable capacity view from
-        the pending-op log — small writes patch tiles, never rebuild.
-        Serialised under ``_view_mut``: two concurrent first searches must
-        not both replay (and clear) the same pending ops."""
-        from retrieval_based_object_detection_tpu_torch.gallery.capacity import (
-            CapacitySearcher,
-        )
-
-        with self._view_mut:
-            return self._ensure_capacity_view_locked(CapacitySearcher)
-
-    def _ensure_capacity_view_locked(self, CapacitySearcher):
+    def _build_capacity_view(self) -> CapacitySearcher:
+        """The capacity view from a matching planes sidecar, else from the
+        host rows, with room for an eighth more rows."""
         n = self._nrows
-        if self._cap_view is None:
-            view = self._planes_sidecar_view(CapacitySearcher)
-            self._cap_view = view if view is not None else CapacitySearcher(
-                self._vectors[:n], self._alive[:n].copy(),
-                headroom=max(4096, n // 8), device=self.device)
-            self._cap_pending.clear()
-            self._cap_mask_cache.clear()
-            return self._cap_view
-        view = self._cap_view
-        try:
-            _replay_view_ops(view, self._cap_pending, self._vectors)
-        except ValueError:
-            # Outgrew the build-time headroom: one rebuild, then the
-            # incremental path resumes.
-            self._cap_view = None
-            return self._ensure_capacity_view()
-        self._cap_pending.clear()
-        return view
+        view = self._planes_sidecar_view()
+        return view if view is not None else CapacitySearcher(
+            self._vectors[:n], self._alive[:n].copy(),
+            headroom=max(4096, n // 8), device=self.device)
 
-    def _planes_sidecar_view(self, CapacitySearcher):
+    def _planes_sidecar_view(self):
         """Restore the capacity view from a ``<name>.rbod.planes`` sidecar
         (gallery/planes.py) when one is recorded AND its snapshot identity
         matches this gallery's live state exactly (same base id, same
@@ -979,8 +1007,6 @@ class Gallery:
         the chunked device build) on any mismatch or read error."""
         if self._planes_path is None:
             return None
-        from retrieval_based_object_detection_tpu_torch.gallery import planes
-
         try:
             hdr = planes.read_header(self._planes_path)
         except (OSError, ValueError, KeyError) as e:
@@ -1012,48 +1038,12 @@ class Gallery:
                   file=sys.stderr)
             return None
 
-    def _cap_filter_mask(self, flt: Filter | None):
-        """Per-filter device mask at the capacity view's padding (cached:
-        re-uploading N bools per query would dominate at 10M rows).
-        Validity and tombstones live in the view's own mask; this carries
-        the payload filter only."""
-        if flt is None:
-            return None
-        view = self._cap_view
-        key = flt.cache_key()
-        cached = self._cap_mask_cache.get(key)
-        if cached is not None and cached.shape[0] == view._padded:
-            return cached
-        with self._view_mut:
-            cached = self._cap_mask_cache.get(key)
-            if cached is not None and cached.shape[0] == view._padded:
-                return cached
-            buf = np.zeros(view._padded, dtype=bool)
-            m = self._payloads.mask(flt)
-            buf[: len(m)] = m
-            mask = torch.from_numpy(buf).to(self.device)
-            if len(self._cap_mask_cache) >= 64:
-                self._cap_mask_cache.clear()
-            self._cap_mask_cache[key] = mask
-            return mask
-
-    def _capacity_search(self, queries: np.ndarray, k: int,
-                         flt: Filter | None,
-                         with_vectors: bool) -> list[list[Record]]:
-        view = self._ensure_capacity_view()
-        k_eff = min(k, len(self))
-        scores, idx = view.search(queries, k=k_eff,
-                                  extra_mask=self._cap_filter_mask(flt))
-        return self._rows_to_records(scores, idx, k_eff, with_vectors)
-
     # ------------------------------------------------------ sharded tier
     def attach_mesh(self, mesh) -> None:
         """Serve this collection from rows sharded over ``mesh``'s
         ``gallery`` axis (``parallel.mesh``): searches then AUTO-route to
         the sharded tier (method=None → "sharded"), and writes keep the
         sharded view patched incrementally."""
-        from retrieval_based_object_detection_tpu_torch.gallery import sharded
-
         if sharded.AXIS not in mesh.shape:
             raise ValueError(
                 f"mesh has no '{sharded.AXIS}' axis: {dict(mesh.shape)}")
@@ -1065,120 +1055,53 @@ class Gallery:
         with self._view_mut:
             if mesh is not self._gallery_mesh:
                 self._gallery_mesh = mesh
-                self._shard_view = None
-                self._shard_pending.clear()
-                self._shard_mask_cache.clear()
-                # Auto-routing now targets the sharded tier, so a live
-                # single-device capacity view would never be read again
-                # while every write kept growing its pending-op log. Drop
-                # it; an explicit method="capacity" search rebuilds it.
-                self._cap_view = None
-                self._cap_pending.clear()
-                self._cap_mask_cache.clear()
+                # The old mesh's sharded view goes. Auto-routing now
+                # targets the sharded tier, so a live single-device
+                # capacity view would never be read again while every
+                # write kept growing its pending-op log: it goes too; an
+                # explicit method="capacity" search rebuilds it.
+                for h in self._views:
+                    h.drop()
 
     def detach_mesh(self) -> None:
         """Drop the mesh and the sharded view; searches fall back to the
         single-device tiers."""
         with self._view_mut:
             self._gallery_mesh = None
-            self._shard_view = None
-            self._shard_pending.clear()
-            self._shard_mask_cache.clear()
+            self._shard.drop()
 
-    def _ensure_shard_view_locked(self, sharded):
-        """Build (or incrementally sync) the writable sharded view from the
-        pending-op log — small writes patch tiles on their shards, never
-        rebuild. Called under ``_view_mut``, as the capacity view's sync
-        is: replay-and-clear must be atomic across readers."""
+    def _build_shard_view(self) -> sharded.ShardedGallerySearcher:
+        """The sharded view over the attached mesh, with room for an
+        eighth more rows. Residency per shard decides its layout, as the
+        single-device auto route decides: past the budget, bf16 + int4
+        planes only."""
         if self._gallery_mesh is None:
             raise ValueError(
                 "no gallery mesh attached — call attach_mesh(mesh) "
                 "before method='sharded' searches")
-        if self._shard_view is None:
-            n = self._nrows
-            n_shards = self._gallery_mesh.shape[sharded.AXIS]
-            # Residency per shard decides the layout, as the single-device
-            # auto route does: past the budget, bf16 + int4 planes only.
-            cap = (self.distance == "cosine" and self.dim % 2 == 0
-                   and n * self.dim * 5 / max(1, n_shards)
-                   > self.CAPACITY_AUTO_BYTES)
-            self._shard_view = sharded.ShardedGallerySearcher.from_gallery(
-                self, self._gallery_mesh, capacity=cap,
-                headroom=max(4096, n // 8))
-            self._shard_pending.clear()
-            self._shard_mask_cache.clear()
-            return self._shard_view
-        view = self._shard_view
-        try:
-            _replay_view_ops(view, self._shard_pending, self._vectors)
-        except ValueError:
-            # Outgrew the build-time headroom: one rebuild, then the
-            # incremental path resumes.
-            self._shard_view = None
-            return self._ensure_shard_view_locked(sharded)
-        self._shard_pending.clear()
-        return view
-
-    def _shard_filter_mask(self, flt: Filter | None):
-        """Per-filter device masks split alongside the sharded rows
-        (cached: re-uploading N bools per query would dominate). Validity
-        and tombstones live in the view's own mask; this carries the
-        payload filter only."""
-        if flt is None:
-            return None
-        view = self._shard_view
-        key = flt.cache_key()
-        cached = self._shard_mask_cache.get(key)
-        if cached is not None and cached[0].shape[0] == view.rows_per:
-            return cached
-        with self._view_mut:
-            cached = self._shard_mask_cache.get(key)
-            if cached is not None and cached[0].shape[0] == view.rows_per:
-                return cached
-            masks = view.split_mask(self._payloads.mask(flt))
-            # As many filters as the single-device route keeps: a caller
-            # filtering on any of 100 classes and a few data types stays
-            # inside it, where 64 made every pass rebuild them all.
-            if len(self._shard_mask_cache) >= 128:
-                self._shard_mask_cache.clear()
-            self._shard_mask_cache[key] = masks
-            return masks
+        n = self._nrows
+        n_shards = self._gallery_mesh.shape[sharded.AXIS]
+        return sharded.ShardedGallerySearcher.from_gallery(
+            self, self._gallery_mesh,
+            capacity=self._over_budget(n / max(1, n_shards), self.dim),
+            headroom=max(4096, n // 8))
 
     def _sharded_search(self, queries: np.ndarray, k: int,
                         flt: Filter | None, with_vectors: bool,
-                        exact: bool, tier: str | None
+                        exact: bool, method: str | None
                         ) -> list[list[Record]]:
-        from retrieval_based_object_detection_tpu_torch.gallery import sharded
-
         with self._view_mut:
-            view = self._ensure_shard_view_locked(sharded)
-            if tier is None:
-                if view.capacity:
-                    if exact:
-                        # The single-device analog fails loudly too;
-                        # serving int4 here would break "exact means
-                        # exact" on the one path where nobody opted into
-                        # approximation.
-                        raise ValueError(
-                            "exact search is unavailable at this scale: "
-                            "the sharded view keeps bf16+int4 planes only "
-                            "(per-shard residency past "
-                            "CAPACITY_AUTO_BYTES). Pass exact=False for "
-                            "the serving tier, or pin "
-                            "method='sharded_bf16'/'sharded_int4'.")
-                    tier = "int4"
-                elif exact:
-                    tier = "exact"
-                else:
-                    tier = ("int8" if self._nrows >= self.INT8_SCAN_MIN_ROWS
-                            and view.devices[0].type == "cuda" else "bf16")
+            view = self._shard.sync(self._build_shard_view, self._vectors)
+            _, tier = self._route(self._nrows, self.dim, self.distance,
+                                  exact, method, True, view.devices[0].type,
+                                  shard_capacity=view.capacity)
             # The tier's lazy int8/int4 mirrors build under the lock too:
             # two readers never build one twice or read half of one.
             view.ensure_mirror(tier)
         k_eff = min(k, len(self))
         scores, idx = view.search(
             queries, k=k_eff, exact=exact, method=tier,
-            extra_mask=self._shard_filter_mask(flt))
+            extra_mask=self._shard.mask(view, flt, self._payloads))
         return self._rows_to_records(scores, idx, k_eff, with_vectors)
 
     # ------------------------------------------------------------ search
@@ -1240,70 +1163,115 @@ class Gallery:
             return self._search(queries, k, flt, exact, with_vectors,
                                 method)
 
-    def _search(self, queries, k, flt, exact, with_vectors, method):
-        n = self._nrows
+    @classmethod
+    def _over_budget(cls, rows: float, dim: int) -> bool:
+        """Whether ``rows`` rows of ``dim`` outgrow the standard mirrors'
+        budget (~5 bytes/dim) on one card, so that only the bf16 + int4
+        capacity layout (even dims) is resident."""
+        return dim % 2 == 0 and rows * dim * 5 > cls.CAPACITY_AUTO_BYTES
+
+    @classmethod
+    def _route(cls, rows: int, dim: int, distance: str, exact: bool,
+               method: str | None, meshed: bool, device_type: str,
+               shard_capacity: bool = False) -> tuple[str, str | None]:
+        """Which tier serves a search → (route, sharded sub-tier), the
+        route one of "exact", "bf16", "int8", "int4", "capacity" and
+        "sharded", the sub-tier None off the sharded route. ``method`` as
+        ``search`` takes it; ``meshed``: a gallery mesh is attached;
+        ``device_type``: the type of the device that scans;
+        ``shard_capacity``: the sharded view keeps the capacity layout
+        only. Raises ValueError on a method string the store does not
+        serve, or one the collection's metric or dim cannot take."""
+        scan = ("int8" if rows >= cls.INT8_SCAN_MIN_ROWS
+                and device_type == "cuda" else "bf16")
         if method is None:
-            if self._gallery_mesh is not None:
+            if meshed:
                 # Mesh attached: the sharded tier IS the serving path (its
                 # exact sub-tier equals single-device exact top-k, ties
                 # broken by shard order).
                 method = "sharded"
             elif exact:
                 method = "exact"
-            elif self.distance != "cosine":
+            elif distance != "cosine":
                 method = "bf16"  # int8 quantisation assumes unit rows
-            elif (self.dim % 2 == 0
-                  and n * self.dim * 5 > self.CAPACITY_AUTO_BYTES):
-                # The standard mirrors (~5 bytes/dim) stop fitting the
-                # card: serve through the bf16 + int4 capacity tier.
+            elif cls._over_budget(rows, dim):
+                # The standard mirrors stop fitting the card: serve
+                # through the bf16 + int4 capacity tier.
                 method = "capacity"
             else:
-                method = ("int8" if n >= self.INT8_SCAN_MIN_ROWS
-                          and self.device.type == "cuda" else "bf16")
-        shard_tier: str | None = None
+                method = scan
         if method == "sharded" or method.startswith("sharded_"):
             # A malformed "shardedfoo" falls through to the unknown-method
             # ValueError below (the HTTP API forwards method strings).
+            tier = None
             if method != "sharded":
-                shard_tier = method[len("sharded_"):]
-                if shard_tier not in ("exact", "bf16", "int8", "int4"):
+                tier = method[len("sharded_"):]
+                if tier not in ("exact", "bf16", "int8", "int4"):
                     raise ValueError(f"unknown sharded tier {method!r}")
-            method = "sharded"
-        elif method not in ("exact", "bf16", "int8", "int4", "capacity"):
+                if tier in ("int8", "int4") and distance != "cosine":
+                    raise ValueError(
+                        f"sharded tier {tier!r} requires a cosine "
+                        "collection (the quantised tiers assume unit-norm "
+                        "rows)")
+            elif shard_capacity:
+                if exact:
+                    # The single-device analog fails loudly too; serving
+                    # int4 here would break "exact means exact" on the
+                    # one path where nobody opted into approximation.
+                    raise ValueError(
+                        "exact search is unavailable at this scale: the "
+                        "sharded view keeps bf16+int4 planes only "
+                        "(per-shard residency past CAPACITY_AUTO_BYTES). "
+                        "Pass exact=False for the serving tier, or pin "
+                        "method='sharded_bf16'/'sharded_int4'.")
+                tier = "int4"
+            else:
+                tier = "exact" if exact else scan
+            return "sharded", tier
+        if method not in ("exact", "bf16", "int8", "int4", "capacity"):
             raise ValueError(
                 f"unknown method {method!r}: expected one of "
                 "'exact', 'bf16', 'int8', 'int4', 'capacity', "
                 "'sharded[_<tier>]' (or None for auto)")
-        if method == "sharded" and shard_tier in ("int8", "int4") \
-                and self.distance != "cosine":
-            raise ValueError(
-                f"sharded tier {shard_tier!r} requires a cosine "
-                "collection (the quantised tiers assume unit-norm rows)")
-        if method in ("int8", "int4", "capacity") \
-                and self.distance != "cosine":
+        if method in ("int8", "int4", "capacity") and distance != "cosine":
             raise ValueError(
                 f"method={method!r} requires a cosine collection (the "
                 "quantised tiers assume unit-norm rows)")
-        if method in ("int4", "capacity") and self.dim % 2:
+        if method in ("int4", "capacity") and dim % 2:
             raise ValueError(f"method={method!r} requires an even dim "
                              "(two dims pack per byte)")
+        return method, None
+
+    def _search(self, queries, k, flt, exact, with_vectors, method):
+        n = self._nrows
+        route, _ = self._route(n, self.dim, self.distance, exact, method,
+                               self._gallery_mesh is not None,
+                               self.device.type)
         queries = np.asarray(queries, dtype=np.float32)
         if queries.ndim == 1:
             queries = queries[None, :]
         if len(self) == 0:  # no LIVE points (all-tombstoned included)
             return [[] for _ in range(queries.shape[0])]
-        if method == "sharded":
+        if route == "sharded":
             # Mesh-resident rows, a scan per shard and the merge; never
-            # touches the single-device mirrors.
+            # touches the single-device mirrors. Its sub-tier is routed
+            # once the view, and so its layout, is built.
             return self._sharded_search(queries, k, flt, with_vectors,
-                                        exact, shard_tier)
-        if method == "capacity":
+                                        exact, method)
+        if route == "capacity":
             # Own device residency (bf16 + int4 planes, no f32 mirror);
             # never touches _sync_mirrors.
-            return self._capacity_search(queries, k, flt, with_vectors)
+            with self._view_mut:
+                view = self._cap.sync(self._build_capacity_view,
+                                      self._vectors)
+            k_eff = min(k, len(self))
+            scores, idx = view.search(
+                queries, k=k_eff,
+                extra_mask=self._cap.mask(view, flt, self._payloads))
+            return self._rows_to_records(scores, idx, k_eff, with_vectors)
         k_eff = min(k, n)
         with tracer.span("search.prep"):
-            scores, idx = self._scan(queries, k_eff, flt, method)
+            scores, idx = self._scan(queries, k_eff, flt, route)
         with tracer.span("search.copy_back"):
             scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
         with tracer.span("search.records"):
@@ -1319,13 +1287,12 @@ class Gallery:
         mask = self._device_mask(flt)
         if method == "int8":
             # The queries go straight into the graph's input on CUDA.
-            rescore = min(max(8 * k_eff, 256), self._padded)
             return self._int8_graphs.topk(
                 queries, self._dev_int8, self._dev_f32, mask, k=k_eff,
-                rescore=rescore)
+                rescore=search_lib.rescore_depth(k_eff, self._padded))
         q = upload(queries, self.device)  # may be a read-only request buffer
+        g = self._dev_f32 if method == "exact" else self._dev_bf16
         if method == "int4":
-            rescore = min(max(8 * k_eff, 256), self._padded)
             if self._dev_int4 is None:
                 with self._view_mut:
                     if self._dev_int4 is None:
@@ -1336,14 +1303,12 @@ class Gallery:
             packed, scales = self._dev_int4
             scores, idx = search_lib.int4_scan_topk(
                 q, packed, scales, self._dev_f32, mask, k=k_eff,
-                rescore=rescore)
+                rescore=search_lib.rescore_depth(k_eff, self._padded))
         elif self.distance == "cosine":
-            g = self._dev_f32 if method == "exact" else self._dev_bf16
             scores, idx = search_lib.masked_cosine_topk(
                 q, g, mask, k=k_eff, exact=(method == "exact"),
                 gallery_normalized=True)
         else:
-            g = self._dev_f32 if method == "exact" else self._dev_bf16
             scores, idx = search_lib.masked_metric_topk(
                 q, g, mask, k=k_eff, distance=self.distance,
                 exact=(method == "exact"))

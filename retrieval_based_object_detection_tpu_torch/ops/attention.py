@@ -162,10 +162,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    KERNEL.launch(B7, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    KERNEL.launch(B7, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), B * H, T, Dh, Dh ** -0.5,
-                  _DTYPE_CODES[q.dtype],
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  _DTYPE_CODES[q.dtype])
     return out
 
 
@@ -201,9 +200,8 @@ def flash_attention_2d_bias(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    KERNEL.launch(B6, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    KERNEL.launch(B6, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   bias_h.data_ptr(), bias_w.data_ptr(), out.data_ptr(),
                   B * H, T, Dh, grid_h, grid_w, Dh ** -0.5,
-                  _DTYPE_CODES[q.dtype],
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  _DTYPE_CODES[q.dtype])
     return out

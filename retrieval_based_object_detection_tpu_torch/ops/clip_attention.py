@@ -145,10 +145,9 @@ def _forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
                       device=qkv.device)
     if B == 0 or T == 0:
         return out
-    KERNEL.launch(
-        "clip_attention_fwd", qkv.data_ptr(), out.data_ptr(), B, T, heads, D,
-        D ** -0.5, _DTYPE_CODES[qkv.dtype],
-        torch.cuda.current_stream(qkv.device).cuda_stream)
+    KERNEL.launch("clip_attention_fwd", qkv.device, qkv.data_ptr(),
+                  out.data_ptr(), B, T, heads, D, D ** -0.5,
+                  _DTYPE_CODES[qkv.dtype])
     return out
 
 
@@ -172,10 +171,9 @@ def clip_attention_core_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     dqkv = torch.empty_like(qkv)
     if B == 0 or T == 0:
         return dqkv
-    KERNEL.launch(
-        "clip_attention_bwd", qkv.data_ptr(), dout.data_ptr(),
-        dqkv.data_ptr(), B, T, heads, D, D ** -0.5, _DTYPE_CODES[qkv.dtype],
-        torch.cuda.current_stream(qkv.device).cuda_stream)
+    KERNEL.launch("clip_attention_bwd", qkv.device, qkv.data_ptr(),
+                  dout.data_ptr(), dqkv.data_ptr(), B, T, heads, D,
+                  D ** -0.5, _DTYPE_CODES[qkv.dtype])
     return dqkv
 
 

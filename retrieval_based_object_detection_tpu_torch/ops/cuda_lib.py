@@ -114,11 +114,15 @@ class CudaLibrary:
                 self._lib = lib
         return self._lib
 
-    def launch(self, fn: str, *args) -> None:
-        """Call one exported launcher; raise on a CUDA error, else count."""
+    def launch(self, fn: str, device: torch.device, *args) -> None:
+        """Call one exported launcher on ``device``, with that card current
+        (the C launchers launch on the current card) and its current
+        stream appended to ``args``; raise on a CUDA error, else count."""
         lib = self.load()
-        capturing = torch.cuda.is_current_stream_capturing()
-        rc = getattr(lib, fn)(*args)
+        with torch.cuda.device(device):
+            capturing = torch.cuda.is_current_stream_capturing()
+            rc = getattr(lib, fn)(
+                *args, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
             msg = lib.kernel_error_string(rc).decode()
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc}: {msg}")

@@ -117,10 +117,7 @@ def int4_scan_scores(q_i8: torch.Tensor, packed: torch.Tensor,
     out = torch.empty((Q, N), dtype=torch.float32, device=q_i8.device)
     if Q == 0 or N == 0:
         return out
-    # The C launcher launches on the current card: make it the tensors'.
-    with torch.cuda.device(q_i8.device):
-        KERNEL.launch(
-            "int4_scan", q_i8.data_ptr(), packed.data_ptr(),
-            scales.data_ptr(), penalty.data_ptr(), out.data_ptr(), Q, N, D,
-            torch.cuda.current_stream(q_i8.device).cuda_stream)
+    KERNEL.launch("int4_scan", q_i8.device, q_i8.data_ptr(),
+                  packed.data_ptr(), scales.data_ptr(), penalty.data_ptr(),
+                  out.data_ptr(), Q, N, D)
     return out

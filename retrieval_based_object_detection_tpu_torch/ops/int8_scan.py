@@ -96,10 +96,7 @@ def int8_scan_scores(q_i8: torch.Tensor, gallery_i8: torch.Tensor,
     out = torch.empty((Q, N), dtype=torch.float32, device=q_i8.device)
     if Q == 0 or N == 0:
         return out
-    # The C launcher launches on the current card: make it the tensors'.
-    with torch.cuda.device(q_i8.device):
-        KERNEL.launch(
-            "int8_scan", q_i8.data_ptr(), gallery_i8.data_ptr(),
-            penalty.data_ptr(), out.data_ptr(), Q, N, D,
-            torch.cuda.current_stream(q_i8.device).cuda_stream)
+    KERNEL.launch("int8_scan", q_i8.device, q_i8.data_ptr(),
+                  gallery_i8.data_ptr(), penalty.data_ptr(), out.data_ptr(),
+                  Q, N, D)
     return out

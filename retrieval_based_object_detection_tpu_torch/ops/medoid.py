@@ -85,10 +85,9 @@ def pairwise_distance_sums(vectors: torch.Tensor) -> torch.Tensor:
     sq = torch.empty(n, dtype=torch.float32, device=vectors.device)
     partial = torch.empty((slots, n), dtype=torch.float32,
                           device=vectors.device)
-    KERNEL.launch(
-        "medoid_sums", vectors.data_ptr(), sq.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), n, d, slots,
-        torch.cuda.current_stream(vectors.device).cuda_stream)
+    KERNEL.launch("medoid_sums", vectors.device, vectors.data_ptr(),
+                  sq.data_ptr(), partial.data_ptr(), out.data_ptr(), n, d,
+                  slots)
     return out
 
 

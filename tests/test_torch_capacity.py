@@ -245,7 +245,7 @@ def test_gallery_capacity_search_tracks_writes_like_jax(seed, jax_as_on_tpu):
                       flt=None if flt is None else tm.Filter(must=flt)))
 
     search()
-    view = tg._cap_view
+    view = tg._cap.view
     for step in range(4):
         new = rng.normal(size=(3, DIM)).astype(np.float32)
         pid = [f"p{int(rng.integers(0, 800))}", f"n{seed}{step}", "p1"]
@@ -258,7 +258,7 @@ def test_gallery_capacity_search_tracks_writes_like_jax(seed, jax_as_on_tpu):
             g.delete(ids=["p1"])
         search()
         search({"class_name": "c0"})
-        assert tg._cap_view is view  # patched, never rebuilt
+        assert tg._cap.view is view  # patched, never rebuilt
         assert not any(h.id == "p1" for r in tg.search(
             q, k=20, method="capacity") for h in r)
 
@@ -273,14 +273,14 @@ def test_gallery_capacity_headroom_overflow_rebuilds(jax_as_on_tpu,
     q = v[:2]
     _gallery_hits_agree(jg.search(q, k=3, method="capacity"),
                         tg.search(q, k=3, method="capacity"))
-    view = tg._cap_view
+    view = tg._cap.view
     more = _rows(13, 5000)
     for mod, g in ((jm, jg), (tm, tg)):
         g.upsert([f"m{i}" for i in range(5000)], more,
                  [mod.Payload(data_type="o", class_name="m")] * 5000)
     _gallery_hits_agree(jg.search(more[:2], k=3, method="capacity"),
                         tg.search(more[:2], k=3, method="capacity"))
-    assert tg._cap_view is not view
+    assert tg._cap.view is not view
 
 
 def test_restart_restores_the_view_from_the_sidecar(tmp_path, monkeypatch):

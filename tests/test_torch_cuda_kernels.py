@@ -270,6 +270,48 @@ def _qkv_bias(device, dtype, B, H, gh, gw, D, seed):
     return q, k, v, bh, bw
 
 
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs (a kernel on the card that is "
+                    "not current)")
+    return torch.device("cuda:0"), torch.device("cuda:1")
+
+
+@pytest.mark.parametrize("kernel", ["B1", "B4", "B6"])
+def test_kernel_launches_on_its_tensors_card(two_cards, kernel):
+    """Each wrapper launches on its tensors' card and that card's stream,
+    whichever card is current: B1, B4 and B6 on cuda:1 with cuda:0
+    current, each against its plain version there."""
+    current, other = two_cards
+    g = torch.Generator(device="cpu").manual_seed(21)
+    lib = {"B1": CA.KERNEL, "B4": M.KERNEL, "B6": A.KERNEL}[kernel]
+    before = lib.launches
+    with torch.cuda.device(current):
+        if kernel == "B1":
+            qkv = torch.randn(2, 50, 3 * 4 * 64, generator=g).to(
+                other, torch.bfloat16)
+            got = CA.clip_attention_core(qkv, heads=4)
+            want = CA.clip_attention_core_plain(qkv, heads=4)
+            tol = {"atol": 1e-2, "rtol": 2 ** -7}
+        elif kernel == "B4":
+            x = torch.nn.functional.normalize(
+                torch.randn(1000, 64, generator=g), dim=1).to(other)
+            got = M.pairwise_distance_sums(x)
+            want = M.pairwise_distance_sums_plain(x)
+            tol = {"rtol": 1e-4, "atol": 5e-2}
+        else:
+            q, k, v, bh, bw = _qkv_bias(other, torch.bfloat16, 2, 2, 9, 7,
+                                        64, seed=21)
+            got = A.flash_attention_2d_bias(q, k, v, bh, bw, 9, 7)
+            want = A.flash_attention_2d_bias_plain(q, k, v, bh, bw, 9, 7)
+            tol = {"atol": 1e-2, "rtol": 2 ** -7}
+        torch.cuda.synchronize(other)
+        assert torch.cuda.current_device() == current.index
+    assert lib.launches == before + 1 and got.device == other
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
 # B6/B7 against the plain einsum oracle. f32: the same f32 sums in another
 # order over up to 4,096 keys. bf16: the kernel rounds each unnormalised p to
 # bf16 before the PV product (as the Pallas kernel does) where the oracle
@@ -585,7 +627,7 @@ def test_delete_reaches_each_scan_tier(cuda_device):
     tiers = ("exact", "bf16", "int8", "int4", "capacity")
     for t in tiers:
         g.search(q, k=10, method=t)
-    mirrors = (g._dev_f32, g._dev_int8, g._dev_int4[0], g._cap_view)
+    mirrors = (g._dev_f32, g._dev_int8, g._dev_int4[0], g._cap.view)
     gone = {f"p{i}" for i in range(16)}
     assert g.delete(ids=sorted(gone)) == 16
     # c7 is every 50th row from p7, which the delete by id took already.
@@ -594,7 +636,7 @@ def test_delete_reaches_each_scan_tier(cuda_device):
     b2, b3 = S.KERNEL.launches, S4.KERNEL.launches
     hits = {t: g.search(q, k=10, method=t) for t in tiers}
     assert S.KERNEL.launches == b2 + 1 and S4.KERNEL.launches == b3 + 2
-    after = (g._dev_f32, g._dev_int8, g._dev_int4[0], g._cap_view)
+    after = (g._dev_f32, g._dev_int8, g._dev_int4[0], g._cap.view)
     assert all(a is b for a, b in zip(after, mirrors))
     for t, res in hits.items():
         assert not gone & {h.id for r in res for h in r}, t

@@ -172,7 +172,7 @@ def test_unported_paths_raise_naming_the_roadmap():
         g.search(np.ones(8, np.float32), method="int16")
     # Asked for by name the capacity tier serves, at any size.
     hit = g.search(np.eye(1, 8, dtype=np.float32), k=1, method="capacity")
-    assert hit[0][0].id == "a" and g._cap_view is not None
+    assert hit[0][0].id == "a" and g._cap.view is not None
     assert g.delete(["a"]) == 1 and len(g) == 1
     assert g.search(np.eye(1, 8, dtype=np.float32), k=2,
                     method="capacity")[0][0].id == "b"
@@ -208,11 +208,153 @@ def test_auto_search_never_picks_the_unported_capacity_tier(monkeypatch,
         g.upsert([f"p{i}" for i in range(40)], vecs, [pl] * 40)
         hits = g.search(vecs[:3], k=1, exact=False)
         assert [h[0].id for h in hits] == ["p0", "p1", "p2"]
-        assert (g._cap_view is not None) == (tier == "capacity")
+        assert (g._cap.view is not None) == (tier == "capacity")
         assert (g._dev_bf16 is not None) == (tier == "mirror")
         # exact=True never leaves the f32 mirror.
         g.search(vecs[:1], k=1)
         assert g._dev_f32 is not None
+
+
+# (rows, dim, distance, exact, method, meshed, device type, past the
+# budget, the sharded view in its capacity layout) -> (route, sub-tier).
+_BIG = TGallery.INT8_SCAN_MIN_ROWS
+ROUTES = {
+    "exact": ((1000, 8, "cosine", True, None, False, "cuda", False, False),
+              ("exact", None)),
+    "exact-past-budget": ((1000, 8, "cosine", True, None, False, "cuda",
+                           True, False), ("exact", None)),
+    "bf16-under-min-rows": ((1000, 8, "cosine", False, None, False, "cuda",
+                             False, False), ("bf16", None)),
+    "int8-cuda": ((_BIG, 8, "cosine", False, None, False, "cuda", False,
+                   False), ("int8", None)),
+    "bf16-cpu": ((_BIG, 8, "cosine", False, None, False, "cpu", False,
+                  False), ("bf16", None)),
+    "capacity-past-budget": ((_BIG, 8, "cosine", False, None, False, "cuda",
+                              True, False), ("capacity", None)),
+    "odd-dim-never-capacity": ((_BIG, 7, "cosine", False, None, False,
+                                "cuda", True, False), ("int8", None)),
+    "dot": ((_BIG, 8, "dot", False, None, False, "cuda", True, False),
+            ("bf16", None)),
+    "euclid": ((_BIG, 8, "euclid", False, None, False, "cuda", True, False),
+               ("bf16", None)),
+    "manhattan": ((_BIG, 8, "manhattan", True, None, False, "cpu", False,
+                   False), ("exact", None)),
+    "pinned-int4": ((1000, 8, "cosine", True, "int4", True, "cpu", False,
+                     False), ("int4", None)),
+    "mesh-exact": ((1000, 8, "cosine", True, None, True, "cpu", False,
+                    False), ("sharded", "exact")),
+    "mesh-int8-cuda": ((_BIG, 8, "cosine", False, None, True, "cuda", True,
+                        False), ("sharded", "int8")),
+    "mesh-bf16-cpu": ((_BIG, 8, "cosine", False, "sharded", True, "cpu",
+                       False, False), ("sharded", "bf16")),
+    "mesh-capacity-layout": ((_BIG, 8, "cosine", False, None, True, "cuda",
+                              True, True), ("sharded", "int4")),
+    "pinned-sharded-bf16": ((1000, 8, "cosine", True, "sharded_bf16", True,
+                             "cpu", False, True), ("sharded", "bf16")),
+    "pinned-sharded-no-mesh": ((1000, 8, "cosine", False, "sharded_exact",
+                                False, "cpu", False, False),
+                               ("sharded", "exact")),
+}
+ROUTE_ERRORS = {
+    "unknown-method": ((1000, 8, "cosine", True, "int16", False, "cpu",
+                        False, False), "unknown method"),
+    "malformed-sharded": ((1000, 8, "cosine", True, "shardedfoo", True,
+                           "cpu", False, False), "unknown method"),
+    "unknown-sharded-tier": ((1000, 8, "cosine", True, "sharded_int16", True,
+                              "cpu", False, False), "unknown sharded tier"),
+    "int8-not-cosine": ((1000, 8, "dot", False, "int8", False, "cuda", False,
+                         False), "requires a cosine"),
+    "capacity-not-cosine": ((1000, 8, "euclid", False, "capacity", False,
+                             "cuda", False, False), "requires a cosine"),
+    "sharded-int4-not-cosine": ((1000, 8, "manhattan", False,
+                                 "sharded_int4", True, "cpu", False, False),
+                                "requires a cosine"),
+    "int4-odd-dim": ((1000, 7, "cosine", False, "int4", False, "cuda", False,
+                      False), "even dim"),
+    "capacity-odd-dim": ((1000, 7, "cosine", False, "capacity", False, "cpu",
+                          False, False), "even dim"),
+    "exact-in-capacity-layout": ((1000, 8, "cosine", True, None, True, "cpu",
+                                  True, True), "exact search is unavailable"),
+}
+
+
+def _route(monkeypatch, rows, dim, distance, exact, method, meshed, device,
+           past_budget, shard_capacity):
+    # One byte past or exactly at the standard mirrors' 5 bytes a dim.
+    monkeypatch.setattr(TGallery, "CAPACITY_AUTO_BYTES",
+                        rows * dim * 5 - (1 if past_budget else 0))
+    return TGallery._route(rows, dim, distance, exact, method, meshed,
+                           device, shard_capacity=shard_capacity)
+
+
+@pytest.mark.parametrize("case", ROUTES)
+def test_route_picks_one_tier(monkeypatch, case):
+    """The one decision of which tier serves a search: a mesh routes to the
+    sharded tier, exact to f32, the non-cosine metrics to bf16, past the
+    budget (even dims) to the capacity tier, int8 on CUDA from
+    INT8_SCAN_MIN_ROWS; the sharded sub-tier by the same rules, int4 in its
+    capacity layout, and pinned method strings as they are."""
+    args, want = ROUTES[case]
+    assert _route(monkeypatch, *args) == want
+
+
+@pytest.mark.parametrize("case", ROUTE_ERRORS)
+def test_route_refuses_what_the_store_does_not_serve(monkeypatch, case):
+    args, match = ROUTE_ERRORS[case]
+    with pytest.raises(ValueError, match=match):
+        _route(monkeypatch, *args)
+
+
+@pytest.mark.parametrize("k, rows, depth", [
+    (1, 200, 200), (1, 10 ** 6, 256), (32, 200, 200), (32, 10 ** 6, 256),
+    (33, 200, 200), (33, 10 ** 6, 264), (100, 200, 200),
+    (100, 10 ** 6, 800)])
+def test_rescore_depth(k, rows, depth):
+    """Eight candidates a hit, at least 256, at most the rows: so the int8
+    tier's captured graphs (GRAPH_MAX_RESCORE) take k up to 32."""
+    from retrieval_based_object_detection_tpu_torch.gallery import search
+
+    assert search.rescore_depth(k, rows) == depth
+    assert (depth <= search.GRAPH_MAX_RESCORE) == (k <= 32 or rows <= 256)
+
+
+@pytest.mark.parametrize("write", ["upsert", "delete"])
+def test_one_write_clears_every_mask_cache_and_queues_one_op(write):
+    """With the mirrors, the capacity view and the sharded view all live
+    and each holding a filter's mask, one upsert or one delete empties
+    every mask cache and queues exactly one op on each live view."""
+    from retrieval_based_object_detection_tpu_torch.parallel.mesh import (
+        gallery_mesh)
+
+    rng = np.random.default_rng(5)
+    g = TGallery("w", dim=8, device="cpu")
+    g.upsert([f"p{i}" for i in range(40)],
+             rng.normal(size=(40, 8)).astype(np.float32),
+             [tschema.Payload(data_type="o", class_name=f"c{i % 3}")
+              for i in range(40)])
+    g.attach_mesh(gallery_mesh(2, device="cpu"))
+    flt = tschema.Filter(must={"class_name": "c1"})
+    q = rng.normal(size=8).astype(np.float32)
+    for method in ("bf16", "capacity", "sharded"):
+        assert g.search(q, k=3, flt=flt, method=method)[0]
+    caches = (g._masks, g._cap.masks, g._shard.masks)
+    assert all(len(c) == 1 for c in caches)
+    assert g._cap.view is not None and g._shard_view is not None
+    if write == "upsert":
+        g.upsert(["p1", "new"], rng.normal(size=(2, 8)).astype(np.float32),
+                 [tschema.Payload(data_type="o", class_name="c1")] * 2)
+        kind = "rows"
+    else:
+        assert g.delete(["p4", "p7"]) == 2
+        kind = "mask"
+    assert not any(caches)
+    assert [op[0] for op in g._cap.pending] == [kind]
+    assert [op[0] for op in g._shard.pending] == [kind]
+    for method in ("bf16", "capacity", "sharded"):
+        hits = g.search(q, k=40, flt=flt, method=method)[0]
+        assert {h.id for h in hits} == {
+            r.id for r in g.scroll_all(flt)}
+    assert not g._cap.pending and not g._shard.pending
 
 
 def test_vector_store_crud_and_device():

@@ -285,12 +285,12 @@ def test_filtered_sharded_search_and_mask_cache():
     got = tw.search(q, flt={"class_name": "a"})
     assert all(h.payload.class_name == "a" for h in got[0])
     key = tschema.Filter(must={"class_name": "a"}).cache_key()
-    cached = tw.t._shard_mask_cache[key]
+    cached = tw.t._shard.masks[key]
     tw.search(q, flt={"class_name": "a"})
-    assert tw.t._shard_mask_cache[key] is cached
+    assert tw.t._shard.masks[key] is cached
     nid, nv, npl = _mk(rng, 1, start=9000, cls="a")
     tw.upsert(nid, nv, npl)
-    assert key not in tw.t._shard_mask_cache
+    assert key not in tw.t._shard.masks
     assert tw.search(nv[0], k=1, flt={"class_name": "a"})[0][0].id == \
         "id9000"
 
@@ -423,16 +423,16 @@ def test_attach_mesh_drops_a_live_capacity_view():
     tw, ids, vecs = _twin(rng)
     q = rng.normal(size=(2, DIM)).astype(np.float32)
     tw.t.search(q, exact=False, method="capacity")
-    assert tw.t._cap_view is not None
+    assert tw.t._cap.view is not None
     tw.attach()
-    assert tw.t._cap_view is None and not tw.t._cap_pending
+    assert tw.t._cap.view is None and not tw.t._cap.pending
     nids, nvecs, npls = _mk(rng, 8, start=1000)
     tw.upsert(nids, nvecs, npls)
     tw.delete(ids=[ids[0]])
-    assert not tw.t._cap_pending
+    assert not tw.t._cap.pending
     tw.search(q)
     assert tw.t.search(q, exact=False, method="capacity")[0]
-    assert tw.t._cap_view is not None
+    assert tw.t._cap.view is not None
 
 
 def test_random_ops_match_jax():
