@@ -8,9 +8,9 @@ on one NVIDIA GPU.
 Builds the port's CUDA kernels from ``csrc/`` (one nvcc per source, all
 started together), counts the tensor-core instructions of each
 tensor-core kernel (B1–B7), and holds each kernel (B1–B7, B1's rotary
-entry at the DINOv3 tower's shape, and P1, the int8 chain's candidate
-select) against its plain PyTorch version at the shapes its path gives
-it. Then it drives
+entry at the DINOv3 tower's shape, P1, the int8 chain's candidate select,
+and P2, the sharded int8 tier's merge) against its plain PyTorch version
+at the shapes its path gives it. Then it drives
 ten paths through the calls a user makes, at full width from seeded
 weights:
 
@@ -41,9 +41,10 @@ weights:
   ``migrate.import_qdrant``, and two shard servers behind ``serve_router``
   equal to the single server;
 - sharded: ``attach_mesh`` of a 4-shard mesh listing cuda:0 four times
-  (B2 or B3 once per shard per search), each tier against the
-  single-device one, writes that patch the view, and
-  ``serve(mesh_devices=-1)``;
+  (B2 or B3 once per shard per search, P2 once per int8 search), each
+  tier against the single-device one, the device operations of one int8
+  search by the profiler (P2, and no library top-k, sort or gather),
+  writes that patch the view, and ``serve(mesh_devices=-1)``;
 - training: ``fit`` fine-tunes ViT-B/32 (bf16 compute, f32 weights) for 12
   steps of 64 on a colour-class tree with checkpoints, then resumes for 6
   more under the cosine schedule; one f32 step's gradients are held
@@ -90,7 +91,8 @@ weights:
   subprocess. Each command's seconds and launches of B1, B5 and B6.
 
 Kernel launch counters are zeroed just before each path and read just
-after it; on every path each B2 run has its one candidate select.
+after it; on every path each B2 run has its one candidate select, and P2
+runs on the sharded path alone.
 
 Prints one JSON line per phase, then the kernel table as one JSON line,
 the card's name and power limit, and last
@@ -126,6 +128,12 @@ SCAN_REPLACES = "retrieval_based_object_detection_tpu/ops/int8_scan.py:59"
 SELECT_SOURCE = "retrieval_based_object_detection_tpu_torch/csrc/int8_select.cu"
 SELECT_REPLACES = ("none: port only (the JAX chain takes approx_max_k; the "
                    "port keeps the exact top-r)")
+MERGE_SOURCE = "retrieval_based_object_detection_tpu_torch/csrc/shard_merge.cu"
+MERGE_REPLACES = ("none: port only (the JAX sharded tier merges with "
+                  "lax.top_k over the all-gathered candidates)")
+# Library kernels that the sharded int8 search no longer runs after its
+# replays: torch.topk's, the stable sort's and torch.gather's.
+MERGE_GONE = ("gatherTopK", "bitonicSort", "RadixSort", "scatter_gather")
 INT4_SOURCE = "retrieval_based_object_detection_tpu_torch/csrc/int4_scan.cu"
 INT4_REPLACES = "retrieval_based_object_detection_tpu/ops/int4_scan.py:80"
 MEDOID_SOURCE = "retrieval_based_object_detection_tpu_torch/csrc/medoid.cu"
@@ -214,6 +222,20 @@ def device_profile(torch, fn, reps: int = 20) -> tuple[float, float]:
         raise AssertionError("the profiler recorded no device time")
     return (sum(e.self_device_time_total for e in events) / reps / 1e3,
             sum(e.count for e in events) / reps)
+
+
+def call_kernels(torch, fn) -> list[str]:
+    """The names of the device operations of one call of ``fn``, warm, by
+    the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.self_device_time_total > 0})
 
 
 def profiler_ms(torch, fn, reps: int = 20) -> float:
@@ -698,6 +720,62 @@ def select_phase(torch, search, S, SEL, seed: int) -> dict:
         log("select_kernel_vs_plain", **out[tag])
         del scores, got, want
         torch.cuda.empty_cache()
+    return out
+
+
+def merge_phase(torch, np, search, sharded, SM, seed: int) -> dict:
+    """The sharded int8 tier's merge (P2) against its plain version, bit
+    for bit, at the sharded cell's shape: 4 shards' rescored [16, 256]
+    candidates (cosines near 0.3, a masked tail on each list), k = 10, all
+    on the one card. Timed by a CUDA graph's replay beside the plain
+    version and, as a yardstick, the tail it replaced (each shard's best k
+    by ``search._best``, then ``sharded._gather_merge``), which gives the
+    same answer here (no ties); and each on the host clock, copy back
+    included. Bound: bytes, the candidates read once and the answer
+    written once."""
+    shards, Q, r, k, rows_per = 4, 16, 256, 10, 294_912
+    g = torch.Generator(device="cuda").manual_seed(seed + 24)
+    scores, rows = [], []
+    for _ in range(shards):
+        live = torch.randint(r // 2, r + 1, (Q, 1), generator=g,
+                             device="cuda")
+        sc = 0.3 + 0.1 * torch.randn(Q, r, generator=g, device="cuda")
+        scores.append(torch.where(torch.arange(r, device="cuda") < live,
+                                  sc, search.NEG_INF).contiguous())
+        rows.append(torch.randint(0, rows_per, (Q, r), generator=g,
+                                  device="cuda"))
+
+    def merge():
+        return SM.shard_merge(scores, rows, rows_per, k)
+
+    def old_tail():
+        best = [search._best(sc, ix, k) for sc, ix in zip(scores, rows)]
+        return sharded._gather_merge([b[0] for b in best],
+                                     [b[1] for b in best], rows_per, k)
+
+    got = merge().host()
+    for name, want in (("plain", SM.shard_merge_plain(scores, rows,
+                                                      rows_per, k)),
+                       ("the eager tail", old_tail())):
+        if not all(np.array_equal(a, b.cpu().numpy())
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"the merge at [{shards}, {Q}, {r}] "
+                                 f"differs from {name}")
+    b_ms, b_by = bound_ms(shards * Q * r * 12 + Q * k * 12, 0, "int8")
+    out = {"shape": [shards, Q, r], "k": k, "max_abs_err": 0.0,
+           "ms": cuda_graph_ms(torch, merge),
+           "plain_ms": cuda_ms(torch, lambda: SM.shard_merge_plain(
+               scores, rows, rows_per, k)),
+           "library": "search._best per shard, sharded._gather_merge",
+           "library_ms": cuda_graph_ms(torch, old_tail),
+           "host_ms": host_ms(lambda: merge().host(), reps=50),
+           "library_host_ms": host_ms(
+               lambda: [t.cpu() for t in old_tail()], reps=50),
+           "bound_ms": b_ms, "bound_by": b_by}
+    for key in ("host_ms", "library_host_ms"):
+        out[key] = {"p50": out[key][25], "min": out[key][0],
+                    "max": out[key][-1]}
+    log("merge_kernel_vs_plain", **out)
     return out
 
 
@@ -1978,7 +2056,7 @@ def sharded_path(torch, np, port, gallery, queries, root, reloaded,
     mesh_lib, server_lib = port["mesh"], port["server"]
     client_lib, schema = port["client"], port["schema"]
     S, S4 = port["int8_scan"], port["int4_scan"]
-    SEL = port["int8_select"]
+    SEL, SM = port["int8_select"], port["shard_merge"]
     k, D = 10, gallery.dim
     rng = np.random.default_rng(seed + 60)
     out = {"rows": len(gallery), "queries": len(queries), "k": k}
@@ -1999,16 +2077,24 @@ def sharded_path(torch, np, port, gallery, queries, root, reloaded,
     for tier in ("sharded_exact", "sharded_int8", "sharded_int4"):
         gallery.search(queries, k=k, method=tier)  # builds its mirror
         b2, b3 = S.KERNEL.launches, S4.KERNEL.launches
-        p1 = SEL.KERNEL.launches
+        p1, p2 = SEL.KERNEL.launches, SM.KERNEL.launches
         res[tier] = gallery.search(queries, k=k, method=tier)
         out["launches_per_search"][tier] = {
             "B2": S.KERNEL.launches - b2, "B3": S4.KERNEL.launches - b3,
-            "P1": SEL.KERNEL.launches - p1}
+            "P1": SEL.KERNEL.launches - p1, "P2": SM.KERNEL.launches - p2}
     if out["launches_per_search"] != {
-            "sharded_exact": {"B2": 0, "B3": 0, "P1": 0},
-            "sharded_int8": {"B2": 4, "B3": 0, "P1": 4},
-            "sharded_int4": {"B2": 0, "B3": 4, "P1": 0}}:
+            "sharded_exact": {"B2": 0, "B3": 0, "P1": 0, "P2": 0},
+            "sharded_int8": {"B2": 4, "B3": 0, "P1": 4, "P2": 1},
+            "sharded_int4": {"B2": 0, "B3": 4, "P1": 0, "P2": 0}}:
         raise AssertionError(f"sharded launches {out['launches_per_search']}")
+    # One int8 search's device operations: the four replays, P2, the
+    # copies; no library top-k, sort or gather.
+    names = call_kernels(torch, lambda: gallery.search(
+        queries, k=k, method="sharded_int8"))
+    out["sharded_int8_kernels"] = names
+    gone = [n for n in names if any(m in n for m in MERGE_GONE)]
+    if gone or not any("shard_merge" in n for n in names):
+        raise AssertionError(f"a sharded int8 search ran {names}")
     assert_same_hits("sharded_exact", res["sharded_exact"], single["exact"])
     if ids_of(res["sharded_int8"]) != ids_of(single["int8"]):
         raise AssertionError("sharded_int8 ids differ from the int8 tier's")
@@ -2067,16 +2153,19 @@ def sharded_path(torch, np, port, gallery, queries, root, reloaded,
         raise AssertionError("mesh_devices=-1 did not take every card")
     client = client_lib.GalleryClient(url, gallery.name)
     client.search(queries, k=k, exact=False)  # builds the view
-    b2 = S.KERNEL.launches
+    b2, p2 = S.KERNEL.launches, SM.KERNEL.launches
     hits = client.search(queries, k=k, exact=False)
     out["mesh_server_b2_launches"] = S.KERNEL.launches - b2
-    if out["mesh_server_b2_launches"] != torch.cuda.device_count():
+    out["mesh_server_p2_launches"] = SM.KERNEL.launches - p2
+    if out["mesh_server_b2_launches"] != torch.cuda.device_count() or \
+            out["mesh_server_p2_launches"] != 1:
         raise AssertionError(f"mesh server launches {out}")
     assert_same_hits("mesh server", hits, reloaded)
     out["mesh_server_s"] = time.perf_counter() - t
     stop_servers(srv)
     log("sharded_serve", mesh_server_s=out["mesh_server_s"],
-        b2_launches=out["mesh_server_b2_launches"])
+        b2_launches=out["mesh_server_b2_launches"],
+        p2_launches=out["mesh_server_p2_launches"])
     return out, view
 
 
@@ -3650,7 +3739,7 @@ def main(argv=None) -> int:
         )
         from retrieval_based_object_detection_tpu_torch.gallery import (
             capacity, client, persist, router, schema, search, server,
-            store,
+            sharded, store,
         )
         from retrieval_based_object_detection_tpu_torch.models.clip import (
             convert as clip_convert, model as clip_model, preprocess,
@@ -3664,7 +3753,7 @@ def main(argv=None) -> int:
         from retrieval_based_object_detection_tpu_torch.ops import (
             attention as A, clip_attention as CA, cuda_lib, image,
             int4_scan as S4, int8_scan as S, int8_select as SEL,
-            medoid as M,
+            medoid as M, shard_merge as SM,
         )
         from retrieval_based_object_detection_tpu_torch.parallel import mesh
         from retrieval_based_object_detection_tpu_torch.models.yolo import (
@@ -3690,7 +3779,7 @@ def main(argv=None) -> int:
         return 2
     port = {"schema": schema, "store": store, "clip_model": clip_model,
             "preprocess": preprocess, "int8_scan": S, "int8_select": SEL,
-            "delegates": delegates,
+            "shard_merge": SM, "delegates": delegates,
             "embed": embed, "serve": serve, "saliency": saliency,
             "image": image, "int4_scan": S4, "medoid": M,
             "experiments": experiments, "search": search, "tree": tree,
@@ -3721,8 +3810,8 @@ def main(argv=None) -> int:
         hbm_bytes_per_s=HBM_BYTES_PER_S)
 
     t = time.perf_counter()
-    libraries = [CA.KERNEL, S.KERNEL, SEL.KERNEL, S4.KERNEL, M.KERNEL,
-                 A.KERNEL]
+    libraries = [CA.KERNEL, S.KERNEL, SEL.KERNEL, SM.KERNEL, S4.KERNEL,
+                 M.KERNEL, A.KERNEL]
     cuda_lib.build_all(libraries)
     log("build", seconds=time.perf_counter() - t,
         libraries=[lib.path.name for lib in libraries])
@@ -3736,6 +3825,7 @@ def main(argv=None) -> int:
     scan = scan_phase(torch, S, args.seed)
     torch.cuda.empty_cache()
     select = select_phase(torch, search, S, SEL, args.seed)
+    merge = merge_phase(torch, np, search, sharded, SM, args.seed)
     int4 = int4_phase(torch, S4, args.seed)
     torch.cuda.empty_cache()
     med = medoid_phase(torch, M, args.seed)
@@ -3748,7 +3838,7 @@ def main(argv=None) -> int:
     def read_counts():
         return {"B1": CA.KERNEL.counts["clip_attention_fwd"],
                 "B2": S.KERNEL.launches, "B3": S4.KERNEL.launches,
-                "P1": SEL.KERNEL.launches,
+                "P1": SEL.KERNEL.launches, "P2": SM.KERNEL.launches,
                 "B4": M.KERNEL.launches,
                 "B5": CA.KERNEL.counts["clip_attention_bwd"],
                 "B6": A.KERNEL.counts[A.B6], "B7": A.KERNEL.counts[A.B7]}
@@ -3892,6 +3982,11 @@ def main(argv=None) -> int:
     if unpaired:
         raise AssertionError(f"B2 runs without one candidate select each: "
                              f"{unpaired}")
+    # The merge runs on the sharded int8 route alone.
+    merged = {path: counts["P2"] for path, counts in by_path.items()}
+    if merged["sharded"] < 1 or any(n for path, n in merged.items()
+                                    if path != "sharded"):
+        raise AssertionError(f"merge launches by path {merged}")
 
     def row(name, kid, source, replaces, res, shape, **extra):
         paths = {path: counts[kid] for path, counts in by_path.items()}
@@ -3931,6 +4026,13 @@ def main(argv=None) -> int:
                 "shape", "ms", "plain_ms", "library_ms", "bound_ms")},
                 "launches_per_search": sharded_out[
                     "launches_per_search"]["sharded_int8"]["P1"]}),
+        row("shard_merge", "P2", MERGE_SOURCE, MERGE_REPLACES, merge,
+            merge["shape"], k=merge["k"], library=merge["library"],
+            host_ms=merge["host_ms"],
+            library_host_ms=merge["library_host_ms"],
+            launches_per_search=sharded_out[
+                "launches_per_search"]["sharded_int8"]["P2"],
+            sharded_int8_kernels=sharded_out["sharded_int8_kernels"]),
         row("int4_scan", "B3", INT4_SOURCE, INT4_REPLACES, int4,
             [16, 1 << 20, 512],
             capacity_10m={**cap_b3, "launches_per_search":

@@ -31,6 +31,7 @@ top-k by scores or id sets.
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 from dataclasses import dataclass
 
@@ -257,11 +258,11 @@ class _Int8Graph:
 
 @dataclass
 class _Card:
-    """What one card's graphs share: their memory pool, and the lock that
-    keeps their replays from interleaving."""
+    """What one card's graphs share: the lock that keeps their replays from
+    interleaving, and their memory pools, one per pair of mirrors."""
 
-    pool: tuple
     lock: threading.Lock
+    pools: dict
 
 
 class Int8ScanGraphs:
@@ -287,22 +288,29 @@ class Int8ScanGraphs:
     least recently used dropped first: one per bucket over the owner's
     mirrors, so that no traffic makes it capture again and again.
 
-    A card's graphs share one memory pool (its scratch is the largest
-    chain's, not the sum), so one's scratch may be another's output: a lock
-    per card covers filling the inputs, the replay and the selection, which
-    go in that order on the calling thread's current stream (the card's
-    default stream in the gallery).
+    A card's graphs over one pair of mirrors share one memory pool (its
+    scratch is the largest chain's, not the sum), so one's scratch may be
+    another's output: a lock per card covers filling the inputs, the replay
+    and the selection, which go in that order on the calling thread's
+    current stream (the card's default stream in the gallery). Graphs over
+    other mirrors on the card (the shards of a mesh that lists one card
+    several times) have pools of their own, so that one shard's replay
+    leaves another's outputs as they were.
+
+    ``candidates`` is the chain up to the selection, for the sharded merge:
+    the caller holds the locks of its cards (``hold``) until what reads the
+    static outputs it hands back has been enqueued.
 
     ``search.int8.graph_captures`` and ``search.int8.graph_replays`` count
     captures and replays in the tracer's counters; B2's and the candidate
     select's ``launches`` count their runs, a replay's too. On other devices
-    ``topk`` runs the eager chain."""
+    ``topk`` and ``candidates`` run the eager chain."""
 
     def __init__(self):
         self._entries: dict[torch.device,
                             collections.OrderedDict[tuple, _Int8Graph]] = {}
         self._cards: dict[torch.device, _Card] = {}
-        self._lock = threading.Lock()  # the two dicts
+        self._lock = threading.Lock()  # the dicts, the cards' pools too
 
     @staticmethod
     def bucket(q: int) -> int | None:
@@ -332,6 +340,8 @@ class Int8ScanGraphs:
         """Drop every entry (a call in flight keeps its own)."""
         with self._lock:
             self._entries.clear()
+            for card in self._cards.values():
+                card.pools.clear()
 
     def _get(self, device, key) -> _Int8Graph | None:
         with self._lock:
@@ -355,9 +365,28 @@ class Int8ScanGraphs:
         with self._lock:
             card = self._cards.get(device)
             if card is None:
-                card = self._cards[device] = _Card(
-                    torch.cuda.graph_pool_handle(), threading.Lock())
+                card = self._cards[device] = _Card(threading.Lock(), {})
             return card
+
+    def _pool(self, card: _Card, gallery_i8: torch.Tensor,
+              gallery_f32: torch.Tensor) -> tuple:
+        """The memory pool of the card's graphs over these mirrors."""
+        mirrors = (gallery_i8.data_ptr(), gallery_f32.data_ptr())
+        with self._lock:
+            pool = card.pools.get(mirrors)
+            if pool is None:
+                pool = card.pools[mirrors] = torch.cuda.graph_pool_handle()
+            return pool
+
+    @contextlib.contextmanager
+    def hold(self, devices):
+        """Hold the locks of the CUDA cards among ``devices``, each once, in
+        one order for every holder."""
+        cards = sorted({d for d in devices if d.type == "cuda"}, key=str)
+        with contextlib.ExitStack() as held:
+            for dev in cards:
+                held.enter_context(self._card(dev).lock)
+            yield
 
     def topk(
         self,
@@ -374,30 +403,75 @@ class Int8ScanGraphs:
         dev = gallery_f32.device
         if isinstance(queries, np.ndarray):
             queries = self.stage(queries, dev)
-        q = queries.shape[0]
-        bucket = self.bucket(q)
-        if dev.type != "cuda" or q == 0 or bucket is None \
-                or rescore > GRAPH_MAX_RESCORE:
+        bucket = self._graphed(queries, dev, rescore)
+        if bucket is None:
             return int8_scan_topk(queries.to(dev), gallery_i8, gallery_f32,
                                   mask, k=k, rescore=rescore)
-        key = self.key(bucket, gallery_i8, gallery_f32, rescore)
-        card = self._card(dev)
-        with torch.cuda.device(dev), card.lock:
-            g = self._get(dev, key)
-            if g is None:
-                g, exact, rows = self._capture(
-                    queries, bucket, gallery_i8, gallery_f32, mask, rescore,
-                    card.pool)
-                self._put(dev, key, g)
-            else:
-                g.queries[:q].copy_(queries, non_blocking=True)
-                g.mask.copy_(mask)
-                g.graph.replay()
-                for lib, recorded in g.recorded.items():
-                    lib.replayed(recorded)
-                tracer.count("search.int8.graph_replays")
-                exact, rows = g.exact, g.rows
+        q = queries.shape[0]
+        with torch.cuda.device(dev), self._card(dev).lock:
+            exact, rows = self._run(queries, bucket, gallery_i8, gallery_f32,
+                                    mask, rescore)
             return _best(exact[:q], rows[:q], k)
+
+    def candidates(
+        self,
+        queries,                    # [Q, D] host: an array, or ``stage``'s
+        gallery_i8: torch.Tensor,   # [N, D] int8 of normalised rows
+        gallery_f32: torch.Tensor,  # [N, D] normalised f32
+        mask: torch.Tensor,         # [N] bool
+        rescore: int = 256,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``topk``'s chain up to its best-k → (exact scores [Q, r] f32,
+        rows [Q, r] int64) on the mirrors' device. The caller holds the
+        card's lock (``hold``): a replay's are views of the graph's static
+        outputs, which the card's next replay overwrites."""
+        dev = gallery_f32.device
+        if isinstance(queries, np.ndarray):
+            queries = self.stage(queries, dev)
+        bucket = self._graphed(queries, dev, rescore)
+        if bucket is None:
+            return _int8_candidates(queries.to(dev), gallery_i8, gallery_f32,
+                                    mask, rescore)
+        q = queries.shape[0]
+        with torch.cuda.device(dev):
+            exact, rows = self._run(queries, bucket, gallery_i8, gallery_f32,
+                                    mask, rescore)
+        return exact[:q], rows[:q]
+
+    def _graphed(self, queries: torch.Tensor, dev: torch.device,
+                 rescore: int) -> int | None:
+        """The bucket whose graph serves the call; None for the eager
+        chain (another device, no queries, more than the largest bucket,
+        more candidates than ``GRAPH_MAX_RESCORE``)."""
+        q = queries.shape[0]
+        if dev.type != "cuda" or q == 0 or rescore > GRAPH_MAX_RESCORE:
+            return None
+        return self.bucket(q)
+
+    def _run(self, queries: torch.Tensor, bucket: int,
+             gallery_i8: torch.Tensor, gallery_f32: torch.Tensor,
+             mask: torch.Tensor, rescore: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Fill and replay the bucket's graph, capturing it on its first
+        call, with the card current and its lock held → the rescored
+        candidates [bucket, r]: the static outputs, or the first call's
+        own."""
+        dev = gallery_f32.device
+        key = self.key(bucket, gallery_i8, gallery_f32, rescore)
+        g = self._get(dev, key)
+        if g is None:
+            pool = self._pool(self._card(dev), gallery_i8, gallery_f32)
+            g, exact, rows = self._capture(queries, bucket, gallery_i8,
+                                           gallery_f32, mask, rescore, pool)
+            self._put(dev, key, g)
+            return exact, rows
+        g.queries[:queries.shape[0]].copy_(queries, non_blocking=True)
+        g.mask.copy_(mask)
+        g.graph.replay()
+        for lib, recorded in g.recorded.items():
+            lib.replayed(recorded)
+        tracer.count("search.int8.graph_replays")
+        return g.exact, g.rows
 
     @staticmethod
     def _capture(queries: torch.Tensor, bucket: int,

@@ -6,13 +6,16 @@ device with the single-device search functions (``search.masked_cosine_topk``,
 ``int8_scan_topk`` — kernel B2 on CUDA — or ``int4_scan_topk`` — kernel B3),
 takes a LOCAL top-k there, and copies each shard's [Q, k] candidates to the
 first shard's device for one merge: the [Q, N] score matrix never leaves its
-shard, so the traffic is O(shards × k) per query batch.
+shard, so the traffic is O(shards × k) per query batch. The int8 tier hands
+over each shard's rescored [Q, r] candidates instead, and one launch of
+kernel P2 on the first card (``ops/shard_merge.py``) takes the best k of
+their union, reading them where they lie.
 
 The port of the JAX package's ``gallery/sharded.py``. Its single-controller
 ``shard_map`` becomes a loop over the shards, one scan per shard per
 search, each on its shard's device and that device's current stream (the
 int8 tier's whole chain as one replay of a CUDA graph on each card); its
-``all_gather`` becomes the copy to the first shard. Exactness:
+``all_gather`` becomes the copy to the first shard, or P2's reads. Exactness:
 cosine top-k over the union of shards equals single-device top-k, with ties
 broken by shard order as ``lax.top_k`` breaks them (a stable sort).
 """
@@ -29,6 +32,14 @@ from retrieval_based_object_detection_tpu_torch.gallery.capacity import (
     _build_planes,
 )
 from retrieval_based_object_detection_tpu_torch.gallery.search import upload
+from retrieval_based_object_detection_tpu_torch.ops.shard_merge import (
+    Merged,
+    shard_merge,
+    shard_merge_plain,
+)
+from retrieval_based_object_detection_tpu_torch.utils import (
+    logging as tracer,
+)
 
 AXIS = "gallery"
 
@@ -89,19 +100,11 @@ def build_sharded(
 
 def _gather_merge(scores: list[torch.Tensor], idx: list[torch.Tensor],
                   rows_per: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The one shard merge of every tier: globalise each shard's [Q, k]
-    candidate rows, bring them to the first shard's device in shard order,
-    and keep the best k. A stable sort keeps the earlier candidate among
-    equal scores (ties broken by shard order, as JAX's ``lax.top_k`` over
-    the gathered candidates breaks them); ``torch.topk`` promises no
-    order."""
-    dev = scores[0].device
-    flat_s = torch.cat([s.to(dev) for s in scores], dim=1)  # [Q, S·k]
-    flat_i = torch.cat([(i.to(torch.int64) + sid * rows_per).to(dev)
-                        for sid, i in enumerate(idx)], dim=1)
-    order = torch.sort(flat_s, dim=1, descending=True, stable=True
-                       ).indices[:, :k]
-    return torch.gather(flat_s, 1, order), torch.gather(flat_i, 1, order)
+    """The shard merge of the exact, bf16 and int4 tiers: each shard's
+    [Q, k] candidates (rows of any integer type) merged by P2's plain
+    version on the first shard's device."""
+    return shard_merge_plain(scores, [i.to(torch.int64) for i in idx],
+                             rows_per, k)
 
 
 def _per_shard(queries: torch.Tensor, shards: list[tuple], fn
@@ -145,19 +148,25 @@ def sharded_int8_topk(
     rescore: int = 256,
     *,
     graphs: search_lib.Int8ScanGraphs,
-) -> tuple[torch.Tensor, torch.Tensor]:
+) -> Merged:
     """The int8 scan (kernel B2 on CUDA) and exact f32 rescore on each
-    shard, then the merge. On CUDA each shard's chain is one replay of its
-    graph in ``graphs``; all are launched before the merge, so the cards
-    work at once."""
+    shard, then the best k of the union of the shards' rescored candidates
+    (kernel P2 on the first card, ``ops/shard_merge.py``; its plain version
+    on the CPU). On CUDA each shard's chain is one replay of its graph in
+    ``graphs``; all are launched before the merge, so the cards work at
+    once, and the cards' locks are held until the merge is launched, so
+    that no other call's replay overwrites candidates it has yet to read.
+    ``search.sharded.merges`` counts the calls that launch P2."""
     _check_shards(mesh, gallery_f32)
     host = graphs.stage(queries, gallery_f32[0].device)  # pinned once
-    scores, idx = [], []
-    for gi, gf, m in zip(gallery_i8, gallery_f32, mask):
-        sc, ix = graphs.topk(host, gi, gf, m, k=k, rescore=rescore)
-        scores.append(sc)
-        idx.append(ix)
-    return _gather_merge(scores, idx, gallery_f32[0].shape[0], k)
+    with graphs.hold([g.device for g in gallery_f32]):
+        cands = [graphs.candidates(host, gi, gf, m, rescore=rescore)
+                 for gi, gf, m in zip(gallery_i8, gallery_f32, mask)]
+        out = shard_merge([c[0] for c in cands], [c[1] for c in cands],
+                          gallery_f32[0].shape[0], k)
+    if out.buf is not None:
+        tracer.count("search.sharded.merges")
+    return out
 
 
 def sharded_int4_topk(
@@ -359,19 +368,19 @@ class ShardedGallerySearcher(_WritableView):
         rescore = search_lib.rescore_depth(k_eff, per_shard)
         self.ensure_mirror(method)
         if method == "int8":
-            # The host queries go straight into each card's graph input.
-            scores, idx = sharded_int8_topk(
+            # The host queries go straight into each card's graph input;
+            # the merge's answer comes back in one copy.
+            return sharded_int8_topk(
                 queries, self._dev_int8, self.dev_vectors, mask, self.mesh,
-                k=k_eff, rescore=rescore, graphs=self._int8_graphs)
+                k=k_eff, rescore=rescore, graphs=self._int8_graphs).host()
+        q = upload(queries, self.devices[0])
+        if method == "int4":
+            scores, idx = sharded_int4_topk(
+                q, [p for p, _ in self._dev_int4],
+                [s for _, s in self._dev_int4], self.dev_vectors, mask,
+                self.mesh, k=k_eff, rescore=rescore)
         else:
-            q = upload(queries, self.devices[0])
-            if method == "int4":
-                scores, idx = sharded_int4_topk(
-                    q, [p for p, _ in self._dev_int4],
-                    [s for _, s in self._dev_int4], self.dev_vectors, mask,
-                    self.mesh, k=k_eff, rescore=rescore)
-            else:
-                scores, idx = sharded_topk(
-                    q, self.dev_vectors, mask, self.mesh, k=k_eff,
-                    exact=(method == "exact"))
+            scores, idx = sharded_topk(
+                q, self.dev_vectors, mask, self.mesh, k=k_eff,
+                exact=(method == "exact"))
         return scores.cpu().numpy(), idx.cpu().numpy()

@@ -3,10 +3,11 @@
 On the card (``cuda`` marker; skipped without one): a graphed call equals
 the eager ``int8_scan_topk`` bit for bit at the 1M cell's shape and at a
 shard's, across filters, after an in-place write, after a growth rebuild,
-under two threads, on the 4-shard route, and for a query count padded up
-to its bucket; the counters say one capture per card and bucket, one
-replay per later call and card, and one B2 run per call and card, and no
-mix of query counts and k captures more than one graph per bucket. On the
+under two threads, on the 4-shard route (under two threads too), and for a
+query count padded up to its bucket; the counters say one capture per card
+and bucket, one replay per later call and card, one B2 run per call and
+card, one merge (P2) per sharded call and none on one card, and no mix of
+query counts and k captures more than one graph per bucket. On the
 CPU: the int8 routes stay eager and capture nothing, and the buckets, the
 cache's keys, eviction and drops, which do not depend on the device,
 behave. No JAX here, so the card tests run on a machine with only the
@@ -31,6 +32,7 @@ from retrieval_based_object_detection_tpu_torch.gallery import store
 from retrieval_based_object_detection_tpu_torch.ops import cuda_lib
 from retrieval_based_object_detection_tpu_torch.ops import int8_scan as S
 from retrieval_based_object_detection_tpu_torch.ops import int8_select as SEL
+from retrieval_based_object_detection_tpu_torch.ops import shard_merge as SM
 from retrieval_based_object_detection_tpu_torch.parallel.mesh import (
     make_mesh,
 )
@@ -301,17 +303,23 @@ def test_two_threads_search_at_once(cuda_device):
     assert len(g._int8_graphs) == 2
 
 
-@pytest.mark.cuda
-def test_four_shards_on_one_card_match_the_eager_merge(cuda_device):
-    """The 4-shard route on a mesh listing cuda:0 four times, a filter
-    ANDed with the view's mask: the merged top-10 equals the merge of the
-    eager chain's per-shard top-10 exactly; four captures on the first
-    call (one per shard), four replays each later call, and four B2 runs
-    every call."""
+def _four_cards() -> list[torch.device]:
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    return [torch.device(f"cuda:{i}") for i in range(4)]
+
+
+def _match_the_eager_merge(devices):
+    """The 4-shard route on a mesh of ``devices``, a filter ANDed with the
+    view's mask: the merged top-10 equals the merge of the eager chain's
+    per-shard top-10 exactly; four captures on the first call (one per
+    shard), four replays each later call, four B2 and four candidate select
+    runs every call, and one merge (P2) launch, counted once in
+    ``search.sharded.merges``."""
     n, d, k = 600_000, 512, 10
     rows = _rows(n, d, 17)
     live = torch.rand(n, generator=torch.Generator().manual_seed(18)) > 0.1
-    mesh = make_mesh({"gallery": 4}, [cuda_device] * 4)
+    mesh = make_mesh({"gallery": 4}, devices)
     view = sharded.ShardedGallerySearcher(rows, live.numpy(), mesh)
     view.ensure_mirror("int8")
     q = rows[:16] + 0.3 * _rows(16, d, 19)
@@ -320,9 +328,13 @@ def test_four_shards_on_one_card_match_the_eager_merge(cuda_device):
     for j, share in enumerate((0.5, 0.05)):
         flt = (torch.rand(n, generator=torch.Generator().manual_seed(20 + j))
                < share).numpy()
-        b2 = S.KERNEL.launches
+        b2, p1, p2 = S.KERNEL.launches, SEL.KERNEL.launches, \
+            SM.KERNEL.launches
+        merges = tracer.counters().get("search.sharded.merges", 0)
         scores, idx = view.search(q, k=k, method="int8", extra_mask=flt)
         assert _counts(before) == (4, 4 * j) and S.KERNEL.launches == b2 + 4
+        assert (SEL.KERNEL.launches - p1, SM.KERNEL.launches - p2) == (4, 1)
+        assert tracer.counters()["search.sharded.merges"] == merges + 1
         fm = view.split_mask(flt)
         per = [_eager(q, view._dev_int8[s], view.dev_vectors[s],
                       view.dev_mask[s] & fm[s], k=k, rescore=rescore)
@@ -336,11 +348,23 @@ def test_four_shards_on_one_card_match_the_eager_merge(cuda_device):
 
 
 @pytest.mark.cuda
+def test_four_shards_on_one_card_match_the_eager_merge(cuda_device):
+    _match_the_eager_merge([cuda_device] * 4)
+
+
+@pytest.mark.cuda
+def test_four_shards_on_four_cards_match_the_eager_merge(cuda_device):
+    """As on one card, with the merge reading the other three cards'
+    candidates over peer access (or copies) behind their streams."""
+    _match_the_eager_merge(_four_cards())
+
+
+@pytest.mark.cuda
 def test_replays_count_one_select_launch_per_card_and_shard(cuda_device):
     """The candidate select runs once a chain: a single-card call (captured,
     then replayed) and the eager chain (k = 33) add one select launch and
-    one B2 run each; a 4-shard call adds four of each, captured or
-    replayed."""
+    one B2 run each, and no merge; a 4-shard call adds four of each,
+    captured or replayed, and one merge."""
     n, d = 300_000, 512
     rows = _rows(n, d, 40)
     gi8, gf32 = _mirrors(n, d, 41, cuda_device)
@@ -348,17 +372,77 @@ def test_replays_count_one_select_launch_per_card_and_shard(cuda_device):
     q = _queries(gf32, 16, 43)
     graphs = search.Int8ScanGraphs()
     for k, rescore in ((10, 256), (10, 256), (33, 264)):
-        sel, b2 = SEL.KERNEL.launches, S.KERNEL.launches
+        sel, b2, p2 = SEL.KERNEL.launches, S.KERNEL.launches, \
+            SM.KERNEL.launches
         graphs.topk(q, gi8, gf32, mask, k=k, rescore=rescore)
-        assert (SEL.KERNEL.launches - sel, S.KERNEL.launches - b2) == (1, 1)
+        assert (SEL.KERNEL.launches - sel, S.KERNEL.launches - b2,
+                SM.KERNEL.launches - p2) == (1, 1, 0)
     live = torch.rand(n, generator=torch.Generator().manual_seed(44)) > 0.1
     view = sharded.ShardedGallerySearcher(
         rows, live.numpy(), make_mesh({"gallery": 4}, [cuda_device] * 4))
     view.ensure_mirror("int8")
     for _ in range(3):
-        sel, b2 = SEL.KERNEL.launches, S.KERNEL.launches
+        sel, b2, p2 = SEL.KERNEL.launches, S.KERNEL.launches, \
+            SM.KERNEL.launches
         view.search(rows[:16], k=10, method="int8")
-        assert (SEL.KERNEL.launches - sel, S.KERNEL.launches - b2) == (4, 4)
+        assert (SEL.KERNEL.launches - sel, S.KERNEL.launches - b2,
+                SM.KERNEL.launches - p2) == (4, 4, 1)
+
+
+def _two_threads_search_one_view(devices):
+    """Two threads on one 4-shard view over ``devices``, each cycling two
+    query counts and three filters: every call's answer is the one a lone
+    caller got, although the merge reads each shard's graph outputs after
+    all four replays. On one card, two buckets of four shards are eight
+    graphs for the card's seven places, so captures come among the
+    replays."""
+    n, d = 400_000, 256
+    rows = _rows(n, d, 50)
+    live = torch.rand(n, generator=torch.Generator().manual_seed(51)) > 0.1
+    view = sharded.ShardedGallerySearcher(
+        rows, live.numpy(), make_mesh({"gallery": 4}, devices))
+    view.ensure_mirror("int8")
+    flts = [(torch.rand(n, generator=torch.Generator().manual_seed(52 + f))
+             < share).numpy() for f, share in enumerate((0.9, 0.3, 0.02))]
+    calls = [(rows[16 * j: 16 * j + (16 if j % 2 else 3)]
+              + 0.2 * _rows(16 if j % 2 else 3, d, 60 + j), flts[j % 3])
+             for j in range(6)]
+
+    def answer(q, flt):
+        return view.search(q, k=10, method="int8", extra_mask=flt)
+
+    want = [answer(q, f) for q, f in calls]
+    errors: list[str] = []
+
+    def worker(offset):
+        for j in range(150):
+            c = (j + offset) % len(calls)
+            got = answer(*calls[c])
+            if not all(np.array_equal(a, b) for a, b in zip(got, want[c])):
+                errors.append(f"call {c} differs")
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(o,)) for o in (0, 3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:3]
+
+
+@pytest.mark.cuda
+def test_two_threads_search_one_sharded_view(cuda_device):
+    _two_threads_search_one_view([cuda_device] * 4)
+
+
+@pytest.mark.cuda
+def test_two_threads_search_a_view_sharded_over_four_cards(cuda_device):
+    _two_threads_search_one_view(_four_cards())
 
 
 # ------------------------------------------------------------- the CPU
